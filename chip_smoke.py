@@ -1,0 +1,304 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), holds each kernel
+against its plain PyTorch twin at the main path's shapes, then drives the
+port's monocular ``Droid.track()`` at 320x512 and full network width on the
+bench's rolled-noise frames, and checks that the tracking went through the
+kernel and stayed finite. Phases print one JSON line each; then the kernel
+table, the card's name and power limit, and a last line
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
+line. The run has a hard deadline. It imports neither JAX nor the JAX
+package, and writes nothing but the kernel build under
+droid_slam_tpu_torch/build/.
+"""
+
+import faulthandler
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+sys.dont_write_bytecode = True  # the run writes nothing but the kernel build
+
+DEADLINE_S = 600
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CKPT = os.path.join(ROOT, "checkpoints", "r5_006000.npz")
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+H, W = 320, 512
+N_WARM, N_TIMED, N_PROF = 16, 12, 2
+
+
+def emit(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+def _deadline(signum, frame):
+    print(json.dumps({"phase": "deadline", "ok": False,
+                      "msg": f"past the {DEADLINE_S} s deadline"}),
+          flush=True)
+    os._exit(124)
+
+
+def _smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
+        f"nvidia-smi failed: {out.stderr.strip()[:200]}"
+
+
+def _time_ms(fn, n=25):
+    """Median of n CUDA-event timings of fn(), after one warm-up call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[n // 2]
+
+
+def library_lookup(pyramid, slots, coords, radius=3):
+    """The window lookup through PyTorch's own bilinear sampler (RAFT's
+    CorrBlock does it so): per level, gather the edges' volumes, cast them
+    to f32 and ``grid_sample`` the 7x7 offsets around coords/2^l, corners
+    outside the map at zero. Only timed and checked here; the port calls
+    the kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    EA, HW, _ = coords.shape
+    rd = 2 * radius + 1
+    off = torch.arange(-radius, radius + 1, device=coords.device,
+                       dtype=torch.float32)
+    outs = []
+    for lvl, vol in enumerate(pyramid):
+        _, _, h2, w2 = vol.shape
+        c = coords / 2.0 ** lvl
+        gx = (c[..., 0, None, None] + off[:, None]) * (2.0 / (w2 - 1)) - 1
+        gy = (c[..., 1, None, None] + off[None, :]) * (2.0 / (h2 - 1)) - 1
+        grid = torch.stack(torch.broadcast_tensors(gx, gy), dim=-1)
+        inp = vol.index_select(0, slots).reshape(EA * HW, 1, h2, w2).float()
+        # grid rows are x offsets, so the flattened window is x-offset-major
+        out = F.grid_sample(inp, grid.reshape(EA * HW, rd, rd, 2),
+                            mode="bilinear", padding_mode="zeros",
+                            align_corners=True)
+        outs.append(out.reshape(EA, HW, rd * rd))
+    return torch.cat(outs, dim=-1)
+
+
+def check_lookup(dev):
+    """The corr-window lookup kernel against its plain twin, and PyTorch's
+    ``grid_sample`` against the same twin, at the frontend update's shapes:
+    48 active edges over 64 volume slots, 4 levels of a 40x64 feature map.
+    Returns the kernel's table row (without launches)."""
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.ops import corr as corr_ops
+    from droid_slam_tpu_torch.ops import corr_cuda
+
+    EB, EA, h, w = 64, 48, H // 8, W // 8
+    HW = h * w
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    slots = torch.as_tensor(rng.permutation(EB)[:EA].astype(np.int32),
+                            device=dev)
+    coords = torch.as_tensor(
+        (rng.uniform(size=(EA, HW, 2)) * np.array([w + 8, h + 8]) - 4)
+        .astype(np.float32), device=dev)
+    vol0 = torch.randn((EB, HW, h, w), generator=gen, device=dev)
+    row = {}
+    for dtype, atol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        pyr = [vol0.to(dtype)]
+        for _ in range(corr_ops.NUM_LEVELS - 1):
+            pyr.append(corr_ops.avg_pool2(pyr[-1]))
+        got = corr_cuda.lookup_pyramid_slots(pyr, slots, coords)
+        want = corr_ops.lookup_pyramid_plain(pyr, slots, coords)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= atol:
+            raise AssertionError(f"lookup kernel ({dtype}) differs from its "
+                                 f"plain twin by {err} > {atol}")
+        lib_err = float((library_lookup(pyr, slots, coords) - want)
+                        .abs().max())
+        if not lib_err <= atol:
+            raise AssertionError(f"grid_sample lookup ({dtype}) differs from "
+                                 f"the plain twin by {lib_err} > {atol}")
+        if dtype == torch.bfloat16:
+            ms = _time_ms(lambda: corr_cuda.lookup_pyramid_slots(pyr, slots,
+                                                                 coords))
+            plain_ms = _time_ms(lambda: corr_ops.lookup_pyramid_plain(
+                pyr, slots, coords), n=21)
+            library_ms = _time_ms(lambda: library_lookup(pyr, slots, coords),
+                                  n=21)
+            # bytes: output + coords + slots + the volume elements the
+            # windows touch (in-range taps of each 8x8 neighbourhood)
+            touched = 0
+            for lvl, v in enumerate(pyr):
+                c = coords / 2.0 ** lvl
+                lo = torch.floor(c) - 3
+                nx = ((lo[..., 0] + 8).clamp(max=v.shape[3])
+                      - lo[..., 0].clamp(min=0)).clamp(0, 8)
+                ny = ((lo[..., 1] + 8).clamp(max=v.shape[2])
+                      - lo[..., 1].clamp(min=0)).clamp(0, 8)
+                touched += int((nx * ny).sum())
+            nbytes = (got.numel() * 4 + coords.numel() * 4 + EA * 4
+                      + touched * pyr[0].element_size())
+            ops = EA * HW * len(pyr) * (49 * 7 + 8)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_FLOPS_PER_S * 1e3
+            row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library_max_abs_err=lib_err,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       bytes=nbytes)
+        else:
+            row.update(max_abs_err_f32=err, library_max_abs_err_f32=lib_err)
+    del vol0
+    torch.cuda.empty_cache()
+    return row
+
+
+def profile_frames(fn, frame_ms):
+    """Device time of fn() by kernel (torch.profiler): per frame, its share
+    of the un-profiled frame time ``frame_ms`` (the profiler slows the host,
+    not the kernels), the lookup kernel's part and the five largest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU:   # kernels and copies on the card
+            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    per_frame = sum(dev.values()) / N_PROF
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+    emit(phase="profile", frames=N_PROF, frame_ms=frame_ms,
+         device_ms_per_frame=per_frame, idle_share=1.0 - per_frame / frame_ms,
+         lookup_ms_per_frame=sum(v for k, v in dev.items()
+                                 if "corr_lookup" in k) / N_PROF,
+         top_ms_per_frame=[[k[:48], round(v / N_PROF, 3)] for k, v in top])
+
+
+def run_track(dev):
+    """Droid.track() at 320x512 on the bench's rolled-noise frames."""
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.config import DroidConfig
+    from droid_slam_tpu_torch.ops import corr_cuda
+    from droid_slam_tpu_torch.slam.droid import Droid
+
+    if not os.path.exists(CKPT):
+        raise FileNotFoundError(f"the trained checkpoint {CKPT} is missing")
+    cfg = DroidConfig(buffer=64, image_size=(H, W), warmup=8,
+                      filter_thresh=-1.0, keyframe_thresh=-1.0,
+                      frontend_window=20, frontend_thresh=17.5,
+                      frontend_radius=2, frontend_nms=1, weights=CKPT)
+    droid = Droid(cfg, device=dev)
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 255, size=(H, W, 3)).astype(np.uint8)
+    intr = np.array([320.0, 320.0, W / 2, H / 2], np.float32)
+
+    corr_cuda.LAUNCHES = 0
+    for t in range(N_WARM):
+        droid.track(float(t), np.roll(base, 4 * t, axis=1), intrinsics=intr)
+    torch.cuda.synchronize()
+    kf0 = droid.video.counter
+    tic = time.perf_counter()
+    for t in range(N_WARM, N_WARM + N_TIMED):
+        droid.track(float(t), np.roll(base, 4 * t, axis=1), intrinsics=intr)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - tic
+    kf_timed = droid.video.counter - kf0
+    t_end = N_WARM + N_TIMED + N_PROF
+    profile_frames(lambda: [droid.track(float(t), np.roll(base, 4 * t, axis=1),
+                                        intrinsics=intr)
+                            for t in range(N_WARM + N_TIMED, t_end)],
+                   frame_ms=elapsed * 1e3 / N_TIMED)
+    droid.flush()
+    torch.cuda.synchronize()
+    launches = corr_cuda.LAUNCHES
+
+    n = droid.video.counter
+    poses, disps = droid.video.poses[:n], droid.video.disps[:n]
+    finite = bool(torch.isfinite(poses).all() and torch.isfinite(disps).all())
+    res = dict(phase="track", weights=os.path.basename(CKPT), frames=t_end,
+               keyframes=n, edges=int(len(droid.frontend.graph.ii)),
+               timed_frames=N_TIMED, timed_keyframes=kf_timed,
+               timed_s=elapsed, kf_per_s=kf_timed / elapsed, finite=finite,
+               lookup_launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(**res)
+    if launches == 0:
+        raise AssertionError("tracking launched the lookup kernel 0 times")
+    if not finite:
+        raise AssertionError("non-finite poses or disparities")
+    if n != t_end or tuple(disps.shape) != (n, H // 8, W // 8):
+        raise AssertionError(f"expected {t_end} keyframes of "
+                             f"{H // 8}x{W // 8}, got {tuple(disps.shape)}")
+    return launches
+
+
+def main():
+    signal.signal(signal.SIGALRM, _deadline)
+    signal.alarm(DEADLINE_S)
+    faulthandler.dump_traceback_later(DEADLINE_S + 30, exit=True)
+    t_start = time.perf_counter()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    from droid_slam_tpu_torch.ops import _build
+
+    dev = torch.device("cuda", 0)
+    smi = _smi()
+    emit(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), smi=smi)
+
+    _build.build(timeout=DEADLINE_S - 60)
+    _build.lib()
+    emit(phase="build", nvcc_s=_build.last_build_seconds,
+         lib=os.path.relpath(_build.LIB_PATH, ROOT))
+
+    try:
+        lookup = check_lookup(dev)
+        launches = run_track(dev)
+    finally:
+        signal.alarm(0)
+        faulthandler.cancel_dump_traceback_later()
+
+    kernels = [dict(
+        name="corr_lookup", route="cuda",
+        source="droid_slam_tpu_torch/csrc/corr_lookup.cu",
+        replaces="droid_slam_tpu/ops/corr_pallas.py:84",
+        launches=launches, atol_bf16=2e-2, atol_f32=1e-4,
+        **lookup)]
+    emit(kernels=kernels, wall_s=time.perf_counter() - t_start)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

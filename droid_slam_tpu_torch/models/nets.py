@@ -1,0 +1,177 @@
+"""DROID networks: feature/context encoders, the ConvGRU update operator and
+graph aggregation, as plain functions on NCHW tensors.
+
+Counterpart of ``droid_slam_tpu/models/nets.py`` on its default
+configuration: the GRU's context contributions are precomputed once per
+update call (``gru_context_pre``) and the zr and q convolutions take
+``[net | corr,flow features]`` in one conv each. The upsampling head is not
+part of this slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .layers import conv2d, conv_nobias, instance_norm
+
+DIM = 32
+CORR_PLANES = 4 * (2 * 3 + 1) ** 2  # 196
+
+_MEAN = (0.485, 0.456, 0.406)
+_STD = (0.229, 0.224, 0.225)
+
+
+def _resblock(params, prefix, x, norm: bool, stride: int):
+    def norm_fn(h):
+        return instance_norm(h) if norm else h
+
+    y = F.relu(norm_fn(conv2d(params, prefix + ".conv1", x, stride=stride)))
+    y = F.relu(norm_fn(conv2d(params, prefix + ".conv2", y)))
+    if stride != 1:
+        x = norm_fn(conv2d(params, prefix + ".downsample.0", x, stride=stride))
+    return F.relu(x + y)
+
+
+def basic_encoder(params, prefix, x, norm: bool):
+    """x [N,3,H,W] -> [N,out,H/8,W/8]."""
+    x = conv2d(params, prefix + ".conv1", x, stride=2)
+    x = F.relu(instance_norm(x) if norm else x)
+    for layer, stride in (("layer1", 1), ("layer2", 2), ("layer3", 2)):
+        for blk in range(2):
+            x = _resblock(params, f"{prefix}.{layer}.{blk}", x, norm,
+                          stride if blk == 0 else 1)
+    return conv2d(params, prefix + ".conv2", x)
+
+
+def normalize_images(images_bgr_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 BGR [N,H,W,3] -> normalized RGB f32 [N,3,H,W]."""
+    x = images_bgr_u8.flip(-1).float() / 255.0
+    mean = torch.tensor(_MEAN, device=x.device)
+    std = torch.tensor(_STD, device=x.device)
+    return ((x - mean) / std).permute(0, 3, 1, 2).contiguous()
+
+
+def extract_features(params, images_bgr_u8, compute_dtype=torch.float32):
+    """fnet + cnet: (fmap, tanh(net), relu(inp)), each [N,128,h,w]."""
+    x = normalize_images(images_bgr_u8).to(compute_dtype)
+    fmap = basic_encoder(params, "fnet", x, norm=True)
+    net, inp = basic_encoder(params, "cnet", x, norm=False).split(128, dim=1)
+    return fmap, torch.tanh(net), F.relu(inp)
+
+
+# ---------------------------------------------------------------------------
+# ConvGRU with global context gates
+# ---------------------------------------------------------------------------
+
+def _merged(params, names):
+    w = torch.cat([params[n + ".weight"] for n in names], dim=0)
+    b = torch.cat([params[n + ".bias"] for n in names], dim=0)
+    return w, b
+
+
+def _glo_gates(params, net):
+    """Global-context gate biases gz, gr, gq, each [E,128,1,1]."""
+    glo = torch.sigmoid(conv2d(params, "update.gru.w", net)) * net
+    glo = glo.float().mean(dim=(2, 3)).to(net.dtype)
+    w, b = _merged(params, ["update.gru.convz_glo", "update.gru.convr_glo",
+                            "update.gru.convq_glo"])
+    zrq = glo @ w.reshape(w.shape[0], w.shape[1]).t().to(glo.dtype) \
+        + b.to(glo.dtype)
+    return zrq[:, :, None, None].split(128, dim=1)
+
+
+def gru_context_pre(params, inp):
+    """Contributions of the context features to the zr and q convolutions:
+    fixed across the iterations of one update call, so computed once."""
+    wzr, _ = _merged(params, ["update.gru.convz", "update.gru.convr"])
+    wq = params["update.gru.convq.weight"]
+    return (conv_nobias(inp, wzr[:, 128:256]),
+            conv_nobias(inp, wq[:, 128:256]))
+
+
+def conv_gru(params, net, inp, pre=None):
+    """net [E,128,h,w]. Without ``pre``, inp is [context | corr | flow]
+    features [E,320,h,w]; with ``pre`` (gru_context_pre of the context),
+    inp is the [corr | flow] features [E,192,h,w]. Returns the new net."""
+    gz, gr, gq = _glo_gates(params, net)
+    wzr, bzr = _merged(params, ["update.gru.convz", "update.gru.convr"])
+    wq = params["update.gru.convq.weight"]
+    bq = params["update.gru.convq.bias"]
+
+    if pre is None:
+        zr = conv_nobias(torch.cat([net, inp], dim=1), wzr) \
+            + bzr.to(net.dtype)[:, None, None]
+        z = torch.sigmoid(zr[:, :128] + gz)
+        r = torch.sigmoid(zr[:, 128:] + gr)
+        q = torch.tanh(conv2d(params, "update.gru.convq",
+                              torch.cat([r * net, inp], dim=1)) + gq)
+        return (1.0 - z) * net + z * q
+
+    pre_zr, pre_q = pre
+    x = torch.cat([net, inp], dim=1)
+    wzr_x = torch.cat([wzr[:, :128], wzr[:, 256:]], dim=1)
+    zr = conv_nobias(x, wzr_x) + pre_zr + bzr.to(net.dtype)[:, None, None]
+    z = torch.sigmoid(zr[:, :128] + gz)
+    r = torch.sigmoid(zr[:, 128:] + gr)
+    wq_x = torch.cat([wq[:, :128], wq[:, 256:]], dim=1)
+    q = torch.tanh(conv_nobias(torch.cat([r * net, inp], dim=1), wq_x)
+                   + pre_q + bq.to(net.dtype)[:, None, None] + gq)
+    return (1.0 - z) * net + z * q
+
+
+# ---------------------------------------------------------------------------
+# update operator + graph aggregation
+# ---------------------------------------------------------------------------
+
+def update_module(params, net, inp, corr, flow=None, ii=None,
+                  num_frames=None, pre=None):
+    """Update operator on a batch of edges.
+
+    net/inp [E,128,h,w], corr [E,196,h,w], flow [E,4,h,w] (zeros if None).
+    Returns (net, delta [E,2,h,w], weight [E,2,h,w]), plus the per-frame
+    damping eta [num_frames,h,w] when ``ii`` (source frame of each edge, in
+    [0, num_frames)) is given.
+    """
+    E, _, h, w = net.shape
+    if flow is None:
+        flow = torch.zeros((E, 4, h, w), dtype=net.dtype, device=net.device)
+    c = F.relu(conv2d(params, "update.corr_encoder.0", corr))
+    c = F.relu(conv2d(params, "update.corr_encoder.2", c))
+    f = F.relu(conv2d(params, "update.flow_encoder.0", flow))
+    f = F.relu(conv2d(params, "update.flow_encoder.2", f))
+
+    if pre is None:
+        net = conv_gru(params, net, torch.cat([inp, c, f], dim=1))
+    else:
+        net = conv_gru(params, net, torch.cat([c, f], dim=1), pre=pre)
+
+    # delta.0 and weight.0 share their input: one 128->256 conv; their
+    # 2-channel second convs become one block-diagonal 256->4 conv
+    wd0, bd0 = _merged(params, ["update.delta.0", "update.weight.0"])
+    ds = F.relu(conv_nobias(net, wd0) + bd0.to(net.dtype)[:, None, None])
+    d2 = params["update.delta.2.weight"]
+    w2 = params["update.weight.2.weight"]
+    blk = d2.new_zeros((4, 256) + tuple(d2.shape[2:]))
+    blk[:2, :128] = d2
+    blk[2:, 128:] = w2
+    bias4 = torch.cat([params["update.delta.2.bias"],
+                       params["update.weight.2.bias"]])
+    head = conv_nobias(ds, blk) + bias4.to(net.dtype)[:, None, None]
+    delta = head[:, :2]
+    weight = torch.sigmoid(head[:, 2:])
+    if ii is None:
+        return net, delta, weight
+    return net, delta, weight, graph_agg(params, net, ii, num_frames)
+
+
+def graph_agg(params, net, ii, num_frames):
+    """Mean over the edges of each source frame, then the damping head:
+    eta [num_frames,h,w] (frames without edges get the head of zeros)."""
+    x = F.relu(conv2d(params, "update.agg.conv1", net))
+    counts = x.new_zeros(num_frames).index_add_(0, ii, x.new_ones(x.shape[0]))
+    sums = x.new_zeros((num_frames,) + x.shape[1:]).index_add_(0, ii, x)
+    mean = sums / counts.clamp(min=1.0)[:, None, None, None]
+    y = F.relu(conv2d(params, "update.agg.conv2", mean))
+    eta = F.softplus(conv2d(params, "update.agg.eta.0", y))
+    return 0.01 * eta[:, 0]

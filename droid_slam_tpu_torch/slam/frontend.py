@@ -1,0 +1,96 @@
+"""DroidFrontend: local sliding-window tracking.
+
+Counterpart of ``droid_slam_tpu/slam/frontend.py`` on its per-call path:
+warm-up initialization (neighborhood + proximity edges, 2 x 8 update
+iterations), then per keyframe: age-based eviction, proximity edges,
+``iters1`` updates, the keyframe-distance probe, and, when the keyframe is
+kept, ``iters2`` more updates and the motion model for the next frame. The
+keyframe decision is applied one frame late (``finalize``), as in the JAX
+pipeline, so that edge sets match it after ``flush``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..geom import distance as gdist
+from ..lie import se3
+from ..state.graph import FactorGraph
+
+
+class DroidFrontend:
+    def __init__(self, params, video, cfg):
+        self.video = video
+        self.graph = FactorGraph(video, params, max_factors=48)
+        self.t1 = 0
+        self.is_initialized = False
+        self.max_age = 20
+        self.iters1 = 3
+        self.iters2 = 2
+        self.warmup = cfg.warmup
+        self.beta = cfg.beta
+        self.frontend_nms = cfg.frontend_nms
+        self.keyframe_thresh = cfg.keyframe_thresh
+        self.frontend_window = cfg.frontend_window
+        self.frontend_thresh = cfg.frontend_thresh
+        self.frontend_radius = cfg.frontend_radius
+        self.motion_damping = max(cfg.motion_damping, 0.0)
+        self._pending_kf = None  # keyframe distance awaiting finalize()
+
+    def _init_next_state(self):
+        """Motion model and median disparity for the incoming frame t1."""
+        v, t1 = self.video, self.t1
+        p_prev = v.poses[t1 - 1]
+        vel = se3.log(se3.mul(p_prev, se3.inv(v.poses[t1 - 2])))
+        v.poses[t1] = se3.mul(se3.exp(self.motion_damping * vel), p_prev)
+        v.disps[t1] = torch.quantile(v.disps[t1 - 3:t1 - 1], 0.5)
+
+    def _update(self):
+        self.t1 += 1
+        g = self.graph
+        if len(g.ii):
+            g.rm_factors(g.age > self.max_age, store=True)
+        g.add_proximity_factors(
+            self.t1 - 5, max(self.t1 - self.frontend_window, 0),
+            rad=self.frontend_radius, nms=self.frontend_nms,
+            thresh=self.frontend_thresh, beta=self.beta, remove=True)
+        g.update(None, None, use_inactive=True, n_iters=self.iters1)
+
+        v = self.video
+        pair = torch.tensor([[self.t1 - 4], [self.t1 - 2]], device=v.device)
+        d = float(gdist.frame_distance(v.poses, v.disps, v.intrinsics[0],
+                                       pair[0], pair[1], self.beta)[0])
+        if d >= 2 * self.keyframe_thresh:
+            g.update(None, None, use_inactive=True, n_iters=self.iters2)
+            self._init_next_state()
+        self._pending_kf = d
+
+    def finalize(self):
+        """Apply the previous update's keyframe decision: drop a redundant
+        keyframe and re-predict the incoming frame."""
+        if self._pending_kf is None:
+            return
+        d, self._pending_kf = self._pending_kf, None
+        if d < 2 * self.keyframe_thresh:
+            self.graph.rm_keyframe(self.t1 - 3)
+            self.video.counter -= 1
+            self.t1 -= 1
+            self._init_next_state()
+
+    def _initialize(self):
+        self.t1 = self.video.counter
+        g = self.graph
+        g.add_neighborhood_factors(0, self.t1, r=3)
+        g.update(1, use_inactive=True, n_iters=8)
+        g.add_proximity_factors(0, 0, rad=2, nms=2,
+                                thresh=self.frontend_thresh, remove=False)
+        g.update(1, use_inactive=True, n_iters=8)
+        self.is_initialized = True
+        g.rm_factors(g.ii < self.warmup - 4, store=True)
+
+    def __call__(self):
+        if not self.is_initialized and self.video.counter == self.warmup:
+            self._initialize()
+            self._init_next_state()
+        elif self.is_initialized and self.t1 < self.video.counter:
+            self._update()

@@ -1,0 +1,76 @@
+"""MotionFilter: per-frame feature extraction and keyframe admission.
+
+Counterpart of ``droid_slam_tpu/slam/motion_filter.py`` on its per-call
+path. Every frame is encoded (fnet + cnet, bf16); one zero-flow update
+against the last keyframe gives the mean flow-correction magnitude, and the
+frame is admitted as a keyframe when it exceeds the threshold. The test for
+frame t is begun when t arrives (``track_begin``) and resolved when t+1
+arrives (``track_finish``), as in the JAX pipeline.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..geom import projective as pops
+from ..lie import se3
+from ..models import nets
+from ..ops import corr as corr_ops
+from ..ops import corr_cuda
+
+_BF16 = torch.bfloat16
+
+
+class MotionFilter:
+    def __init__(self, params, video, thresh: float = 2.5):
+        self.params = params
+        self.video = video
+        self.thresh = thresh
+        self.fmap = self.net = self.inp = None  # last keyframe's features
+        self._pending = None
+
+    def _encode(self, image):
+        img = torch.as_tensor(np.asarray(image), device=self.video.device)
+        fmap, net, inp = nets.extract_features(self.params, img[None],
+                                               compute_dtype=_BF16)
+        return fmap[0], net[0], inp[0]
+
+    def _delta(self, fmap):
+        """Mean |flow correction| of one zero-flow update vs the last
+        keyframe (the second call site of the corr-window lookup)."""
+        h, w = fmap.shape[-2:]
+        pyramid = corr_ops.build_pyramid(self.fmap[None], fmap[None])
+        coords0 = pops.coords_grid(h, w, device=fmap.device)
+        slots = torch.zeros(1, dtype=torch.int32, device=fmap.device)
+        corr = corr_cuda.lookup_pyramid_slots(
+            pyramid, slots, coords0.reshape(1, h * w, 2))
+        corr = corr.to(_BF16).transpose(1, 2).reshape(1, -1, h, w)
+        _, delta, _ = nets.update_module(self.params, self.net[None],
+                                         self.inp[None], corr)
+        return delta.float().norm(dim=1).mean()
+
+    def track_begin(self, tstamp, image, intrinsics):
+        """Encode the frame and start its admission test."""
+        fmap, net, inp = self._encode(image)
+        if self.video.counter == 0 and self._pending is None:
+            # the first frame is always a keyframe: pose Id, disparity 1
+            self.fmap, self.net, self.inp = fmap, net, inp
+            self.video.append(tstamp, pose=se3.identity(device=fmap.device),
+                              disp=1.0,
+                              intrinsics=np.asarray(intrinsics) / 8.0,
+                              fmap=fmap, net=net, inp=inp)
+            return
+        self._pending = (tstamp, intrinsics, fmap, net, inp,
+                         self._delta(fmap))
+
+    def track_finish(self):
+        """Resolve the pending test; append the frame when admitted."""
+        if self._pending is None:
+            return
+        tstamp, intrinsics, fmap, net, inp, delta = self._pending
+        self._pending = None
+        if float(delta) > self.thresh:
+            self.fmap, self.net, self.inp = fmap, net, inp
+            self.video.append(tstamp, intrinsics=np.asarray(intrinsics) / 8.0,
+                              fmap=fmap, net=net, inp=inp)

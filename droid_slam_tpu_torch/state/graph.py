@@ -1,0 +1,255 @@
+"""FactorGraph: the frontend's covisibility graph with dynamic shapes.
+
+Counterpart of the frontend subset of ``droid_slam_tpu/state/graph.py``.
+Edge bookkeeping (ii, jj, age, inactive edges, NMS proposals) is host numpy;
+per-edge device state (GRU hidden state, target, weight and the 4-level
+correlation-volume pyramid) lives in tensors in edge order, concatenated on
+add and compacted on remove. One update iteration: reproject -> corr-window
+lookup (CUDA kernel on the GPU, ops/corr_cuda.py) -> update operator +
+graph aggregation -> windowed dense BA.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ba import inference as ba_inference
+from ..geom import projective as pops
+from ..models import nets
+from ..ops import corr as corr_ops
+from ..ops import corr_cuda
+
+_BF16 = torch.bfloat16
+
+
+class FactorGraph:
+    def __init__(self, video, params, max_factors: int = -1):
+        self.video = video
+        self.params = params
+        self.max_factors = max_factors
+        self.h, self.w = video.h, video.w
+        dev, hw = video.device, video.h * video.w
+
+        self.ii = np.zeros(0, np.int64)
+        self.jj = np.zeros(0, np.int64)
+        self.age = np.zeros(0, np.int64)
+        self.net = torch.zeros((0, 128, self.h, self.w), dtype=_BF16,
+                               device=dev)
+        self.target = torch.zeros((0, 2, hw), device=dev)
+        self.weight = torch.zeros((0, 2, hw), device=dev)
+        self.pyramid = [torch.zeros((0, hw, self.h >> l, self.w >> l),
+                                    dtype=_BF16, device=dev)
+                        for l in range(corr_ops.NUM_LEVELS)]
+
+        self.ii_inac = np.zeros(0, np.int64)
+        self.jj_inac = np.zeros(0, np.int64)
+        self.target_inac = torch.zeros((0, 2, hw), device=dev)
+        self.weight_inac = torch.zeros((0, 2, hw), device=dev)
+
+    def _dev(self, a):
+        return torch.as_tensor(np.asarray(a, np.int64),
+                               device=self.video.device)
+
+    # ------------------------------------------------------------------
+    # add / remove
+    # ------------------------------------------------------------------
+
+    def add_factors(self, ii, jj, remove: bool = False):
+        ii = np.asarray(ii, np.int64).reshape(-1)
+        jj = np.asarray(jj, np.int64).reshape(-1)
+        seen = set(zip(self.ii.tolist(), self.jj.tolist()))
+        seen |= set(zip(self.ii_inac.tolist(), self.jj_inac.tolist()))
+        keep = []
+        for k, e in enumerate(zip(ii.tolist(), jj.tolist())):
+            if e not in seen:
+                seen.add(e)
+                keep.append(k)
+        ii, jj = ii[keep], jj[keep]
+        if len(ii) == 0:
+            return
+
+        # cap on active factors: evict the oldest
+        if (self.max_factors > 0 and len(self.ii) + len(ii) > self.max_factors
+                and remove and len(self.ii)):
+            order = np.argsort(self.age, kind="stable")
+            evict = order[max(self.max_factors - len(ii), 0):]
+            mask = np.zeros(len(self.ii), bool)
+            mask[evict] = True
+            self.rm_factors(mask, store=True)
+
+        v = self.video
+        ii_t, jj_t = self._dev(ii), self._dev(jj)
+        coords, _, _ = pops.projective_transform(v.poses, v.disps,
+                                                 v.intrinsics, ii_t, jj_t)
+        k, hw = len(ii), self.h * self.w
+        target0 = coords.reshape(k, hw, 2).transpose(1, 2)
+        vols = corr_ops.build_pyramid(v.fmaps[ii_t], v.fmaps[jj_t])
+
+        self.net = torch.cat([self.net, v.nets[ii_t]])
+        self.target = torch.cat([self.target, target0])
+        self.weight = torch.cat([self.weight, torch.zeros_like(target0)])
+        self.pyramid = [torch.cat([p, q.to(_BF16)])
+                        for p, q in zip(self.pyramid, vols)]
+        self.ii = np.concatenate([self.ii, ii])
+        self.jj = np.concatenate([self.jj, jj])
+        self.age = np.concatenate([self.age, np.zeros(k, np.int64)])
+
+    def rm_factors(self, mask, store: bool = False):
+        """Remove the edges where ``mask``; with ``store`` their targets and
+        weights stay in the BA as inactive edges."""
+        mask = np.asarray(mask, bool)
+        if not mask.any():
+            return
+        if store:
+            gone = self._dev(np.flatnonzero(mask))
+            self.ii_inac = np.concatenate([self.ii_inac, self.ii[mask]])
+            self.jj_inac = np.concatenate([self.jj_inac, self.jj[mask]])
+            self.target_inac = torch.cat([self.target_inac, self.target[gone]])
+            self.weight_inac = torch.cat([self.weight_inac, self.weight[gone]])
+        kept = self._dev(np.flatnonzero(~mask))
+        self.net = self.net[kept]
+        self.target = self.target[kept]
+        self.weight = self.weight[kept]
+        self.pyramid = [p[kept] for p in self.pyramid]
+        self.ii, self.jj, self.age = (self.ii[~mask], self.jj[~mask],
+                                      self.age[~mask])
+
+    def rm_keyframe(self, ix: int):
+        """Drop keyframe ix from the video and every edge touching it, and
+        renumber the frames after it."""
+        self.video.rm_keyframe(ix)
+        m = (self.ii_inac == ix) | (self.jj_inac == ix)
+        self.ii_inac = np.where(self.ii_inac >= ix, self.ii_inac - 1,
+                                self.ii_inac)[~m]
+        self.jj_inac = np.where(self.jj_inac >= ix, self.jj_inac - 1,
+                                self.jj_inac)[~m]
+        if m.any():
+            kept = self._dev(np.flatnonzero(~m))
+            self.target_inac = self.target_inac[kept]
+            self.weight_inac = self.weight_inac[kept]
+        drop = (self.ii == ix) | (self.jj == ix)
+        self.ii = np.where(self.ii >= ix, self.ii - 1, self.ii)
+        self.jj = np.where(self.jj >= ix, self.jj - 1, self.jj)
+        self.rm_factors(drop, store=False)
+
+    # ------------------------------------------------------------------
+    # update operator + BA
+    # ------------------------------------------------------------------
+
+    def update(self, t0=None, t1=None, itrs=2, use_inactive=False,
+               n_iters=1):
+        """n_iters x (update operator + ``itrs`` BA iterations)."""
+        if not len(self.ii):
+            return
+        ii, jj = self.ii, self.jj
+        if t0 is None:
+            t0 = max(1, int(ii.min()) + 1)
+        if t1 is None:
+            t1 = int(max(ii.max(), jj.max())) + 1
+        g0 = int(min(ii.min(), jj.min(), t0 - 1))
+
+        m = np.zeros(len(self.ii_inac), bool)
+        if use_inactive:
+            m = (self.ii_inac >= t0 - 3) & (self.jj_inac >= t0 - 3)
+        inac = self._dev(np.flatnonzero(m))
+        tgt_inac, wgt_inac = self.target_inac[inac], self.weight_inac[inac]
+        plan = ba_inference.build_plan(
+            np.concatenate([self.ii_inac[m], ii]),
+            np.concatenate([self.jj_inac[m], jj]), t0, t1, self.video.device)
+
+        ii_t, jj_t = self._dev(ii), self._dev(jj)
+        slots = torch.arange(len(ii), dtype=torch.int32,
+                             device=self.video.device)
+        frames = np.unique(ii)
+        pre = nets.gru_context_pre(self.params, self.video.inps[ii_t])
+        for _ in range(n_iters):
+            eta = self._step(ii_t, jj_t, slots, ii_t - g0, t1 - g0, pre)
+            self.video.damping[self._dev(frames)] = \
+                eta[self._dev(frames - g0)].float()
+            self.video.ba(torch.cat([tgt_inac, self.target]),
+                          torch.cat([wgt_inac, self.weight]), plan,
+                          iters=itrs, lm=1e-4, ep=0.1)
+        self.age += n_iters
+
+    def _step(self, ii_t, jj_t, slots, agg_ii, nw, pre):
+        """One update-operator pass over the active edges; updates net,
+        target and weight, returns the per-frame damping [nw,h,w]."""
+        v = self.video
+        E, h, w = len(slots), self.h, self.w
+        coords1, _, _ = pops.projective_transform(v.poses, v.disps,
+                                                  v.intrinsics, ii_t, jj_t)
+        coords0 = pops.coords_grid(h, w, device=coords1.device)
+        resd = self.target.reshape(E, 2, h, w).permute(0, 2, 3, 1) - coords1
+        motn = torch.cat([coords1 - coords0, resd], dim=-1).clamp(-64.0, 64.0)
+
+        corr = corr_cuda.lookup_pyramid_slots(
+            self.pyramid, slots, coords1.reshape(E, h * w, 2).contiguous())
+        corr = corr.to(_BF16).transpose(1, 2).reshape(E, -1, h, w)
+        self.net, delta, weight, eta = nets.update_module(
+            self.params, self.net, None, corr,
+            motn.to(_BF16).permute(0, 3, 1, 2), ii=agg_ii, num_frames=nw,
+            pre=pre)
+        self.target = (coords1.permute(0, 3, 1, 2) + delta.float()) \
+            .reshape(E, 2, h * w)
+        self.weight = weight.float().reshape(E, 2, h * w)
+        return eta
+
+    # ------------------------------------------------------------------
+    # edge proposers
+    # ------------------------------------------------------------------
+
+    def add_neighborhood_factors(self, t0, t1, r=3):
+        ii, jj = np.meshgrid(np.arange(t0, t1), np.arange(t0, t1),
+                             indexing="ij")
+        ii, jj = ii.reshape(-1), jj.reshape(-1)
+        keep = (np.abs(ii - jj) > 0) & (np.abs(ii - jj) <= r)
+        self.add_factors(ii[keep], jj[keep])
+
+    def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,
+                              thresh=16.0, remove=False):
+        """Greedy NMS edge proposal by frame distance."""
+        t = self.video.counter
+        ix, jx = np.arange(t0, t), np.arange(t1, t)
+        if len(ix) == 0 or len(jx) == 0:
+            return
+        ii, jj = np.meshgrid(ix, jx, indexing="ij")
+        ii, jj = ii.reshape(-1), jj.reshape(-1)
+        d = self.video.distance(ii, jj, beta=beta).cpu().numpy() \
+            .astype(np.float64)
+        d[ii - rad < jj] = np.inf
+        d[d > 100] = np.inf
+        cols = t - t1
+
+        def suppress(i, j):
+            n = max(min(abs(i - j) - 2, nms), 0)
+            for di in range(-nms, nms + 1):
+                for dj in range(-nms, nms + 1):
+                    if abs(di) + abs(dj) <= n:
+                        i1, j1 = i + di, j + dj
+                        if t0 <= i1 < t and t1 <= j1 < t:
+                            d[(i1 - t0) * cols + (j1 - t1)] = np.inf
+
+        for i, j in zip(np.concatenate([self.ii, self.ii_inac]).tolist(),
+                        np.concatenate([self.jj, self.jj_inac]).tolist()):
+            suppress(i, j)
+
+        es = []
+        for i in range(t0, t):
+            for j in range(max(i - rad - 1, 0), i):
+                es += [(i, j), (j, i)]
+                if t1 <= j < t:
+                    d[(i - t0) * cols + (j - t1)] = np.inf
+
+        for k in np.argsort(d, kind="stable"):
+            if d[k] > thresh:
+                continue
+            if self.max_factors > 0 and len(es) > self.max_factors:
+                break
+            i, j = int(ii[k]), int(jj[k])
+            es += [(i, j), (j, i)]
+            suppress(i, j)
+
+        if es:
+            es = np.asarray(es, np.int64)
+            self.add_factors(es[:, 0], es[:, 1], remove)

@@ -1,0 +1,99 @@
+"""DepthVideo: the keyframe buffers, as plain tensors on one device.
+
+Counterpart of ``droid_slam_tpu/state/video.py`` for monocular tracking.
+Buffers (capacity B, feature resolution h = H/8, w = W/8):
+  tstamp [B]   poses [B,7] (world-to-camera, [t,q])   disps [B,h,w]
+  intrinsics [B,4] (at 1/8 scale)   damping [B,h,w]
+  fmaps/nets/inps [B,128,h,w] bf16 (NCHW, PyTorch's convolution layout)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..geom import distance as gdist
+from ..geom import projective as pops
+from ..lie import se3
+from ..ba import inference as ba_inf
+
+
+class DepthVideo:
+    def __init__(self, image_size=(480, 640), buffer: int = 512,
+                 device="cuda"):
+        self.h, self.w = h, w = image_size[0] // 8, image_size[1] // 8
+        self.buffer = buffer
+        self.device = dev = torch.device(device)
+        f32, bf16 = torch.float32, torch.bfloat16
+        self.tstamp = torch.zeros(buffer, dtype=f32, device=dev)
+        self.poses = se3.identity((buffer,), f32, dev)
+        self.disps = torch.ones((buffer, h, w), dtype=f32, device=dev)
+        self.intrinsics = torch.zeros((buffer, 4), dtype=f32, device=dev)
+        self.damping = torch.full((buffer, h, w), 1e-6, dtype=f32, device=dev)
+        self.fmaps = torch.zeros((buffer, 128, h, w), dtype=bf16, device=dev)
+        self.nets = torch.zeros((buffer, 128, h, w), dtype=bf16, device=dev)
+        self.inps = torch.zeros((buffer, 128, h, w), dtype=bf16, device=dev)
+        self.counter = 0
+
+    _FIELDS = ("tstamp", "poses", "disps", "intrinsics", "damping", "fmaps",
+               "nets", "inps")
+
+    def append(self, tstamp, pose=None, disp=None, intrinsics=None,
+               fmap=None, net=None, inp=None):
+        """Write the next keyframe; fields left None keep their values
+        (the motion model has already written the pose and disparity)."""
+        ix = self.counter
+        if ix >= self.buffer:
+            raise RuntimeError(
+                f"DepthVideo buffer full: keyframe index {ix} >= buffer "
+                f"{self.buffer}; raise the buffer or filter_thresh")
+        self.tstamp[ix] = float(tstamp)
+        if pose is not None:
+            self.poses[ix] = pose
+        if disp is not None:
+            self.disps[ix] = disp
+        if intrinsics is not None:
+            self.intrinsics[ix] = torch.as_tensor(
+                np.asarray(intrinsics, np.float32), device=self.device)
+        for buf, val in ((self.fmaps, fmap), (self.nets, net),
+                         (self.inps, inp)):
+            if val is not None:
+                buf[ix] = val
+        self.counter = ix + 1
+
+    def rm_keyframe(self, ix: int):
+        """Remove keyframe ix: shift [ix+1, counter) down one slot."""
+        t = self.counter
+        for name in self._FIELDS:
+            buf = getattr(self, name)
+            buf[ix:t - 1] = buf[ix + 1:t].clone()
+
+    def normalize(self):
+        """Rescale the keyframes' mean disparity to 1 (monocular scale)."""
+        t = self.counter
+        s = self.disps[:t].mean()
+        self.disps[:t] /= s
+        self.poses[:t, :3] *= s
+
+    def reproject(self, ii, jj):
+        """Pixels of frames ii warped into frames jj: (coords [E,h,w,2],
+        valid [E,h,w,1])."""
+        ii = torch.as_tensor(np.atleast_1d(ii), device=self.device)
+        jj = torch.as_tensor(np.atleast_1d(jj), device=self.device)
+        coords, valid, _ = pops.projective_transform(
+            self.poses, self.disps, self.intrinsics, ii, jj)
+        return coords, valid
+
+    def distance(self, ii, jj, beta=0.3, bidirectional=True):
+        """Frame distance of each pair (ii[k], jj[k]) -> [len(ii)] tensor."""
+        ii = torch.as_tensor(np.atleast_1d(ii), device=self.device)
+        jj = torch.as_tensor(np.atleast_1d(jj), device=self.device)
+        return gdist.frame_distance(self.poses, self.disps,
+                                    self.intrinsics[0], ii, jj, beta,
+                                    bidirectional=bidirectional)
+
+    def ba(self, target, weight, plan, iters=2, lm=1e-4, ep=0.1):
+        """Dense BA over the plan's edges (target/weight [E,2,HW])."""
+        self.poses, self.disps = ba_inf.ba_iterations(
+            self.poses, self.disps, self.damping, self.intrinsics[0],
+            target, weight, plan, lm=lm, ep=ep, iters=iters)

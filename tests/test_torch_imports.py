@@ -1,0 +1,77 @@
+"""The port stands alone: importing any of its modules (or chip_smoke.py)
+pulls in neither JAX nor the JAX package, and its entry point defaults to
+the GPU."""
+
+import inspect
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import droid_slam_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    pkg = droid_slam_tpu_torch
+    return [pkg.__name__] + [
+        m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "droid_slam_tpu_torch.ops.corr_cuda" in mods
+    code = (
+        "import importlib, sys, runpy\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'droid_slam_tpu' or m.startswith('droid_slam_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("ok")
+
+
+def test_droid_defaults_to_cuda_and_refuses_without_it():
+    from droid_slam_tpu_torch.config import DroidConfig
+    from droid_slam_tpu_torch.slam.droid import Droid
+
+    default = inspect.signature(Droid.__init__).parameters["device"].default
+    assert default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Droid(DroidConfig(image_size=(64, 96), buffer=8))
+
+
+def test_droid_scopes_tf32_off_to_its_calls(monkeypatch):
+    """track() and flush() run with TF32 off (f32 geometry and BA) and give
+    the caller back its own settings."""
+    from droid_slam_tpu_torch.config import DroidConfig
+    from droid_slam_tpu_torch.slam.droid import Droid
+
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    for f in flags:
+        monkeypatch.setattr(f, "allow_tf32", True)
+    seen = []
+
+    class Stage:
+        def __call__(self, *args):
+            seen.append([f.allow_tf32 for f in flags])
+
+        finalize = track_begin = track_finish = __call__
+
+    droid = Droid(DroidConfig(image_size=(64, 96), buffer=8), device="cpu")
+    droid.frontend = droid.filterx = Stage()
+    droid.track(0.0, None, intrinsics=None)
+    droid.flush()
+    assert seen and all(s == [False, False] for s in seen)
+    assert [f.allow_tf32 for f in flags] == [True, True]
