@@ -5,13 +5,23 @@
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), holds each kernel
 against its plain PyTorch twin at the main path's shapes, then drives the
-port's monocular ``Droid.track()`` at 320x512 and full network width on the
-bench's rolled-noise frames, and checks that the tracking went through the
-kernel and stayed finite. Phases print one JSON line each; then the kernel
-table, the card's name and power limit, and a last line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
-line. The run has a hard deadline. It imports neither JAX nor the JAX
-package, and writes nothing but the kernel build under
+port's monocular main path at 320x512 and full network width on the bench's
+rolled-noise frames, with the trained weights:
+
+  track        ``Droid.track()`` in the default configuration (corr lookup
+               kernel; the GRU's plain epilogues);
+  track_fused  the same frames with ``gru_fused_epilogue=True`` (all three
+               kernels), 2 of its frames profiled;
+  terminate    ``terminate(stream=...)`` on the track_fused instance: two
+               global-BA passes (7 and 12 steps) and the trajectory filler
+               over the bench's filler stream (GRU epilogues and lookup).
+
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after, and fails if a kernel of its path was not launched. Phases
+print one JSON line each; then the kernel table, the card's name and power
+limit, and a last line ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before that line. The run has a hard deadline. It imports neither
+JAX nor the JAX package, and writes nothing but the kernel build under
 droid_slam_tpu_torch/build/.
 """
 
@@ -32,6 +42,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 H, W = 320, 512
 N_WARM, N_TIMED, N_PROF = 16, 12, 2
+BACKEND_STEPS = (7, 12)
+GRU_E = 48                     # the frontend's active edges at 320x512
 
 
 def emit(**kw):
@@ -170,6 +182,99 @@ def check_lookup(dev):
     return row
 
 
+def check_gru(dev):
+    """Both GRU epilogue kernels against their plain twins at the frontend
+    update's shapes (48 edges, 40x64), bf16 and f32. Returns their table
+    rows (without launches)."""
+    import torch
+    from droid_slam_tpu_torch.ops import gru as gru_ops
+    from droid_slam_tpu_torch.ops import gru_cuda
+
+    E, h, w = GRU_E, H // 8, W // 8
+    HW = h * w
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def planes(c, dtype, scale=2.0):
+        return (scale * torch.randn((E, c, h, w), generator=gen,
+                                    device=dev)).to(dtype)
+
+    rows = {"gru_epilogue_a": {}, "gru_epilogue_b": {}}
+    for dtype, atol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        zrc, cf, pre_zr = planes(256, dtype), planes(384, dtype), \
+            planes(256, dtype)
+        qc, pre_q = planes(128, dtype), planes(128, dtype)
+        net = torch.tanh(planes(128, dtype))
+        z = torch.sigmoid(planes(128, dtype))
+        gzr = (2.0 * torch.randn((E, 256), generator=gen, device=dev)) \
+            .to(dtype)
+        gq = gzr[:, :128].contiguous()
+        args = {"gru_epilogue_a": (zrc, cf, pre_zr, net, gzr),
+                "gru_epilogue_b": (qc, cf, pre_q, net, z, gq)}
+        fns = {"gru_epilogue_a": (gru_cuda.gru_epilogue_a,
+                                  gru_ops.gru_epilogue_a_plain),
+               "gru_epilogue_b": (gru_cuda.gru_epilogue_b,
+                                  gru_ops.gru_epilogue_b_plain)}
+        for name, (kernel, plain) in fns.items():
+            got, want = kernel(*args[name]), plain(*args[name])
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(float((g.float() - x.float()).abs().max())
+                      for g, x in zip(got, want))
+            if not err <= atol:
+                raise AssertionError(f"{name} kernel ({dtype}) differs from "
+                                     f"its plain twin by {err} > {atol}")
+            if dtype == torch.float32:
+                rows[name].update(max_abs_err_f32=err)
+                continue
+            a = args[name]
+            ms = _time_ms(lambda: kernel(*a))
+            plain_ms = _time_ms(lambda: plain(*a))
+            # bytes: the channels each function reads (A: zrc, cf[:256],
+            # pre_zr, net; B: qc, cf[256:], pre_q, net, z) and writes
+            # (A: z, r*net; B: the new state), plus the gate biases;
+            # operations: ~16 (A) and ~12 (B) f32 flops per output element
+            ch_in, ch_out, flops = ((256 * 3 + 128, 256, 16)
+                                    if name == "gru_epilogue_a" else
+                                    (128 * 5, 128, 12))
+            nbytes = (E * HW * (ch_in + ch_out) * net.element_size()
+                      + a[-1].numel() * a[-1].element_size())
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = E * 128 * HW * flops / F32_FLOPS_PER_S * 1e3
+            rows[name].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=None,
+                library_why="no single PyTorch call computes a 4-way sum, "
+                            "an activation and a product",
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes)
+    emit(phase="gru", edges=E, plane=[h, w], **{
+        k: {kk: v[kk] for kk in ("max_abs_err", "max_abs_err_f32", "ms",
+                                 "plain_ms", "bound_ms", "bytes")}
+        for k, v in rows.items()})
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _reset_counts():
+    from droid_slam_tpu_torch.ops import corr_cuda, gru_cuda
+    corr_cuda.LAUNCHES = gru_cuda.LAUNCHES_A = gru_cuda.LAUNCHES_B = 0
+
+
+def _counts():
+    from droid_slam_tpu_torch.ops import corr_cuda, gru_cuda
+    return {"corr_lookup": corr_cuda.LAUNCHES,
+            "gru_epilogue_a": gru_cuda.LAUNCHES_A,
+            "gru_epilogue_b": gru_cuda.LAUNCHES_B}
+
+
+def _require_launches(counts, names, phase):
+    missing = [n for n in names if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"{phase} launched {missing} 0 times: {counts}")
+
+
 def profile_frames(fn, frame_ms):
     """Device time of fn() by kernel (torch.profiler): per frame, its share
     of the un-profiled frame time ``frame_ms`` (the profiler slows the host,
@@ -189,19 +294,27 @@ def profile_frames(fn, frame_ms):
             dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total / 1e3
     per_frame = sum(dev.values()) / N_PROF
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+    part = lambda key: sum(v for k, v in dev.items() if key in k) / N_PROF
     emit(phase="profile", frames=N_PROF, frame_ms=frame_ms,
          device_ms_per_frame=per_frame, idle_share=1.0 - per_frame / frame_ms,
-         lookup_ms_per_frame=sum(v for k, v in dev.items()
-                                 if "corr_lookup" in k) / N_PROF,
+         lookup_ms_per_frame=part("corr_lookup"),
+         gru_epilogue_a_ms_per_frame=part("epilogue_a_kernel"),
+         gru_epilogue_b_ms_per_frame=part("epilogue_b_kernel"),
          top_ms_per_frame=[[k[:48], round(v / N_PROF, 3)] for k, v in top])
 
 
-def run_track(dev):
-    """Droid.track() at 320x512 on the bench's rolled-noise frames."""
+def _frame(base, t):
+    import numpy as np
+    return np.roll(base, 4 * t, axis=1)
+
+
+def run_track(dev, fused, profile):
+    """Droid.track() at 320x512 on the bench's rolled-noise frames, with the
+    launch counts set to 0 before and read after. Returns the tracker, the
+    frames' base image and intrinsics, and the counts."""
     import numpy as np
     import torch
     from droid_slam_tpu_torch.config import DroidConfig
-    from droid_slam_tpu_torch.ops import corr_cuda
     from droid_slam_tpu_torch.slam.droid import Droid
 
     if not os.path.exists(CKPT):
@@ -209,50 +322,93 @@ def run_track(dev):
     cfg = DroidConfig(buffer=64, image_size=(H, W), warmup=8,
                       filter_thresh=-1.0, keyframe_thresh=-1.0,
                       frontend_window=20, frontend_thresh=17.5,
-                      frontend_radius=2, frontend_nms=1, weights=CKPT)
+                      frontend_radius=2, frontend_nms=1, weights=CKPT,
+                      gru_fused_epilogue=fused)
+    torch.cuda.reset_peak_memory_stats()
     droid = Droid(cfg, device=dev)
     rng = np.random.default_rng(0)
     base = rng.integers(0, 255, size=(H, W, 3)).astype(np.uint8)
     intr = np.array([320.0, 320.0, W / 2, H / 2], np.float32)
 
-    corr_cuda.LAUNCHES = 0
+    _reset_counts()
     for t in range(N_WARM):
-        droid.track(float(t), np.roll(base, 4 * t, axis=1), intrinsics=intr)
+        droid.track(float(t), _frame(base, t), intrinsics=intr)
     torch.cuda.synchronize()
     kf0 = droid.video.counter
     tic = time.perf_counter()
     for t in range(N_WARM, N_WARM + N_TIMED):
-        droid.track(float(t), np.roll(base, 4 * t, axis=1), intrinsics=intr)
+        droid.track(float(t), _frame(base, t), intrinsics=intr)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - tic
     kf_timed = droid.video.counter - kf0
-    t_end = N_WARM + N_TIMED + N_PROF
-    profile_frames(lambda: [droid.track(float(t), np.roll(base, 4 * t, axis=1),
-                                        intrinsics=intr)
-                            for t in range(N_WARM + N_TIMED, t_end)],
-                   frame_ms=elapsed * 1e3 / N_TIMED)
+    t_end = N_WARM + N_TIMED
+    if profile:
+        t_end += N_PROF
+        profile_frames(lambda: [droid.track(float(t), _frame(base, t),
+                                            intrinsics=intr)
+                                for t in range(N_WARM + N_TIMED, t_end)],
+                       frame_ms=elapsed * 1e3 / N_TIMED)
     droid.flush()
     torch.cuda.synchronize()
-    launches = corr_cuda.LAUNCHES
+    counts = _counts()
 
     n = droid.video.counter
     poses, disps = droid.video.poses[:n], droid.video.disps[:n]
     finite = bool(torch.isfinite(poses).all() and torch.isfinite(disps).all())
-    res = dict(phase="track", weights=os.path.basename(CKPT), frames=t_end,
-               keyframes=n, edges=int(len(droid.frontend.graph.ii)),
-               timed_frames=N_TIMED, timed_keyframes=kf_timed,
-               timed_s=elapsed, kf_per_s=kf_timed / elapsed, finite=finite,
-               lookup_launches=launches,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    emit(**res)
-    if launches == 0:
-        raise AssertionError("tracking launched the lookup kernel 0 times")
+    phase = "track_fused" if fused else "track"
+    emit(phase=phase, weights=os.path.basename(CKPT), frames=t_end,
+         keyframes=n, edges=int(len(droid.frontend.graph.ii)),
+         timed_frames=N_TIMED, timed_keyframes=kf_timed, timed_s=elapsed,
+         kf_per_s=kf_timed / elapsed, finite=finite, launches=counts,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    _require_launches(counts, ["corr_lookup"] + (
+        ["gru_epilogue_a", "gru_epilogue_b"] if fused else []), phase)
+    if not fused and (counts["gru_epilogue_a"] or counts["gru_epilogue_b"]):
+        raise AssertionError(f"the default configuration launched the GRU "
+                             f"epilogue kernels: {counts}")
     if not finite:
         raise AssertionError("non-finite poses or disparities")
     if n != t_end or tuple(disps.shape) != (n, H // 8, W // 8):
         raise AssertionError(f"expected {t_end} keyframes of "
                              f"{H // 8}x{W // 8}, got {tuple(disps.shape)}")
-    return launches
+    return droid, base, intr, counts
+
+
+def run_terminate(droid, base, intr):
+    """terminate() with bench.py's filler stream (one fresh non-keyframe
+    for every two keyframes), launch counts set to 0 before, read after."""
+    import numpy as np
+    import torch
+
+    t = droid.video.counter
+
+    def stream():
+        for k in range(0, t, 2):
+            yield k + 0.5, _frame(base, k if k % 4 else k + 1), intr
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    traj = droid.terminate(stream=stream(), backend_steps=BACKEND_STEPS)
+    torch.cuda.synchronize()
+    counts = _counts()
+    st = droid.terminate_stats
+    n = droid.video.counter
+    finite = bool(np.isfinite(traj).all()
+                  and torch.isfinite(droid.video.poses[:n]).all()
+                  and torch.isfinite(droid.video.disps[:n]).all())
+    emit(phase="terminate", keyframes=n, filler_frames=(t + 1) // 2,
+         backend_steps=list(BACKEND_STEPS), backend_s=st["backend_s"],
+         backend_edges=st["backend_edges"], filler_s=st["filler_s"],
+         total_s=st["total_s"], traj_shape=list(traj.shape),
+         traj_finite=finite, launches=counts,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    _require_launches(counts, list(counts), "terminate")
+    if not finite or traj.shape != ((t + 1) // 2, 7):
+        raise AssertionError(f"terminate returned {traj.shape}, "
+                             f"finite={finite}")
+    if not all(e > 0 for e in st["backend_edges"]):
+        raise AssertionError(f"a global BA pass had no edges: {st}")
+    return counts
 
 
 def main():
@@ -281,17 +437,34 @@ def main():
 
     try:
         lookup = check_lookup(dev)
-        launches = run_track(dev)
+        gru = check_gru(dev)
+        droid, _, _, _ = run_track(dev, fused=False, profile=False)
+        del droid
+        torch.cuda.empty_cache()
+        droid, base, intr, c_track = run_track(dev, fused=True, profile=True)
+        c_term = run_terminate(droid, base, intr)
     finally:
         signal.alarm(0)
         faulthandler.cancel_dump_traceback_later()
 
-    kernels = [dict(
-        name="corr_lookup", route="cuda",
-        source="droid_slam_tpu_torch/csrc/corr_lookup.cu",
-        replaces="droid_slam_tpu/ops/corr_pallas.py:84",
-        launches=launches, atol_bf16=2e-2, atol_f32=1e-4,
-        **lookup)]
+    # launches: the main path of this slice, track_fused then terminate
+    src = "droid_slam_tpu_torch/csrc/"
+    meta = {"corr_lookup": ("corr_lookup.cu",
+                            "droid_slam_tpu/ops/corr_pallas.py:84",
+                            dict(atol_bf16=2e-2, atol_f32=1e-4, **lookup)),
+            "gru_epilogue_a": ("gru_epilogue.cu",
+                               "droid_slam_tpu/ops/gru_pallas.py:72",
+                               dict(atol_bf16=1e-2, atol_f32=1e-5,
+                                    **gru["gru_epilogue_a"])),
+            "gru_epilogue_b": ("gru_epilogue.cu",
+                               "droid_slam_tpu/ops/gru_pallas.py:93",
+                               dict(atol_bf16=1e-2, atol_f32=1e-5,
+                                    **gru["gru_epilogue_b"]))}
+    kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep,
+                    launches=c_track[name] + c_term[name],
+                    launches_track=c_track[name],
+                    launches_terminate=c_term[name], **row)
+               for name, (f, rep, row) in meta.items()]
     emit(kernels=kernels, wall_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

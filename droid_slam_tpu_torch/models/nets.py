@@ -1,11 +1,12 @@
 """DROID networks: feature/context encoders, the ConvGRU update operator and
 graph aggregation, as plain functions on NCHW tensors.
 
-Counterpart of ``droid_slam_tpu/models/nets.py`` on its default
-configuration: the GRU's context contributions are precomputed once per
-update call (``gru_context_pre``) and the zr and q convolutions take
-``[net | corr,flow features]`` in one conv each. The upsampling head is not
-part of this slice.
+Counterpart of ``droid_slam_tpu/models/nets.py``: the GRU's context
+contributions are precomputed once per update call (``gru_context_pre``) and
+the zr and q convolutions take ``[net | corr,flow features]`` in one conv
+each. With ``fused_epilogue`` (the JAX package's ``DROID_GRU_PALLAS=1``) the
+GRU instead runs its gate arithmetic in the two fused epilogues of
+``ops/gru_cuda.py``. The upsampling head is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops import gru_cuda
 from .layers import conv2d, conv_nobias, instance_norm
 
 DIM = 32
@@ -90,10 +92,14 @@ def gru_context_pre(params, inp):
             conv_nobias(inp, wq[:, 128:256]))
 
 
-def conv_gru(params, net, inp, pre=None):
+def conv_gru(params, net, inp, pre=None, fused_epilogue=False):
     """net [E,128,h,w]. Without ``pre``, inp is [context | corr | flow]
     features [E,320,h,w]; with ``pre`` (gru_context_pre of the context),
-    inp is the [corr | flow] features [E,192,h,w]. Returns the new net."""
+    inp is the [corr | flow] features [E,192,h,w]. Returns the new net.
+
+    ``fused_epilogue`` (taken only with ``pre``): the gate sums and
+    activations run in the two fused epilogue kernels between three
+    convolutions, as ``droid_slam_tpu/models/nets.py:195-210`` does."""
     gz, gr, gq = _glo_gates(params, net)
     wzr, bzr = _merged(params, ["update.gru.convz", "update.gru.convr"])
     wq = params["update.gru.convq.weight"]
@@ -109,6 +115,21 @@ def conv_gru(params, net, inp, pre=None):
         return (1.0 - z) * net + z * q
 
     pre_zr, pre_q = pre
+    if fused_epilogue:
+        # the zr and q convs share the corr/flow features: one merged
+        # 192->384 conv (on NCHW features, so that its output is the
+        # contiguous NCHW the kernels read; the features arrive channels-last
+        # from the lookup's transposed output); the gate biases are
+        # pre-summed in the working dtype, where JAX rounds them
+        cf = conv_nobias(inp.contiguous(),
+                         torch.cat([wzr[:, 256:], wq[:, 256:]]))
+        gzr = torch.cat([gz, gr], dim=1)[:, :, 0, 0] + bzr.to(net.dtype)
+        gqb = gq[:, :, 0, 0] + bq.to(net.dtype)
+        zrc = conv_nobias(net, wzr[:, :128])
+        z, rnet = gru_cuda.gru_epilogue_a(zrc, cf, pre_zr, net, gzr)
+        qc = conv_nobias(rnet, wq[:, :128])
+        return gru_cuda.gru_epilogue_b(qc, cf, pre_q, net, z, gqb)
+
     x = torch.cat([net, inp], dim=1)
     wzr_x = torch.cat([wzr[:, :128], wzr[:, 256:]], dim=1)
     zr = conv_nobias(x, wzr_x) + pre_zr + bzr.to(net.dtype)[:, None, None]
@@ -125,8 +146,9 @@ def conv_gru(params, net, inp, pre=None):
 # ---------------------------------------------------------------------------
 
 def update_module(params, net, inp, corr, flow=None, ii=None,
-                  num_frames=None, pre=None):
-    """Update operator on a batch of edges.
+                  num_frames=None, pre=None, fused_epilogue=False):
+    """Update operator on a batch of edges (``fused_epilogue``: see
+    ``conv_gru``; it applies only with ``pre``).
 
     net/inp [E,128,h,w], corr [E,196,h,w], flow [E,4,h,w] (zeros if None).
     Returns (net, delta [E,2,h,w], weight [E,2,h,w]), plus the per-frame
@@ -144,7 +166,8 @@ def update_module(params, net, inp, corr, flow=None, ii=None,
     if pre is None:
         net = conv_gru(params, net, torch.cat([inp, c, f], dim=1))
     else:
-        net = conv_gru(params, net, torch.cat([c, f], dim=1), pre=pre)
+        net = conv_gru(params, net, torch.cat([c, f], dim=1), pre=pre,
+                       fused_epilogue=fused_epilogue)
 
     # delta.0 and weight.0 share their input: one 128->256 conv; their
     # 2-channel second convs become one block-diagonal 256->4 conv

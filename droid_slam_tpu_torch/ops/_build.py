@@ -68,5 +68,9 @@ def lib() -> ctypes.CDLL:
         fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                        vp, vp, vp, vp]
         fn.restype = ci
+        for name in ("droid_gru_epilogue_a", "droid_gru_epilogue_b"):
+            fn = getattr(handle, name)
+            fn.argtypes = [ci, ci, ci, ci] + [vp] * 8
+            fn.restype = ci
         _lib = handle
     return _lib

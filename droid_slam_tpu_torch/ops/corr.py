@@ -1,6 +1,7 @@
-"""Correlation volumes, their pyramid, and the plain window lookup.
+"""Correlation volumes, their pyramid, the plain window lookup, and the
+on-the-fly (alt) correlation of the global BA.
 
-Counterpart of ``droid_slam_tpu/ops/corr.py:34-112``. A volume is
+Counterpart of ``droid_slam_tpu/ops/corr.py:34-112,476-554``. A volume is
 ``[E, HW, h2, w2]``: for each source pixel, its correlation with every
 target pixel, pooled 2x per level. ``lookup_level_plain`` is the plain
 PyTorch twin of the CUDA kernel in ``csrc/corr_lookup.cu`` (wrapper:
@@ -88,3 +89,65 @@ def lookup_pyramid_plain(pyramid, slots, coords, radius: int = RADIUS):
     return torch.cat([lookup_level_plain(vol, slots, coords / (2.0 ** lvl),
                                          radius)
                       for lvl, vol in enumerate(pyramid)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# alt correlation: the window computed from feature pyramids (global BA)
+# ---------------------------------------------------------------------------
+
+def build_fmap_pyramid(fmaps: torch.Tensor, num_levels: int = NUM_LEVELS):
+    """fmaps [N,C,h,w] -> [[N,h/2^l,w/2^l,C] for l in levels], pooled 2x per
+    level, channels last so that each sampled pixel is one contiguous row."""
+    pyr = [fmaps]
+    for _ in range(num_levels - 1):
+        pyr.append(avg_pool2(pyr[-1]))
+    return [p.permute(0, 2, 3, 1).contiguous() for p in pyr]
+
+
+def _alt_level(f1, f2l, coords, jj, radius):
+    """f1 [E,HW,C] f32 (level-0 source features), f2l [N,hl,wl,C], coords
+    [E,HW,2] at this level's scale -> [E,HW,(2r+1)^2] f32, x-major.
+
+    Dot products (/16, the volume's (f1/4).(f2/4)) on the (2r+2)^2 integer
+    grid around each coordinate, zero outside the map, blended bilinearly
+    to (2r+1)^2 taps. One grid row (2r+2 rows of the table gathered per
+    pixel) at a time bounds the working set."""
+    E, HW, C = f1.shape
+    N, hl, wl, _ = f2l.shape
+    r = radius
+    D = 2 * r + 2
+    rd = 2 * r + 1
+    table = f2l.reshape(N * hl * wl, C)
+    base = (jj * (hl * wl))[:, None, None]
+    x0 = torch.floor(coords[..., 0])
+    y0 = torch.floor(coords[..., 1])
+    dx = (coords[..., 0] - x0)[..., None, None]
+    dy = (coords[..., 1] - y0)[..., None, None]
+    xi = x0[..., None] + (torch.arange(D, device=coords.device) - r)
+
+    rows = []
+    for di in range(D):                              # y offset
+        yi = (y0 + (di - r))[..., None].expand_as(xi)
+        inb = (xi >= 0) & (xi < wl) & (yi >= 0) & (yi < hl)
+        idx = base + torch.where(inb, yi * wl + xi, 0).long()
+        f2g = table[idx].float()                     # [E,HW,D,C]
+        dot = torch.matmul(f2g, f1[..., None])[..., 0] / 16.0
+        rows.append(dot * inb)
+    ci = torch.stack(rows, dim=-2)                   # [E,HW,D(y),D(x)]
+    out = ((1 - dx) * (1 - dy)) * ci[..., :rd, :rd] \
+        + (dx * (1 - dy)) * ci[..., :rd, 1:] \
+        + ((1 - dx) * dy) * ci[..., 1:, :rd] \
+        + (dx * dy) * ci[..., 1:, 1:]
+    return out.transpose(-1, -2).reshape(E, HW, rd * rd)
+
+
+def alt_lookup(fmap_pyramid, coords, ii, jj, radius: int = RADIUS):
+    """Correlation windows of the edges (ii -> jj) computed from the feature
+    pyramid (build_fmap_pyramid) directly, without volumes.
+
+    coords [E,HW,2] level-0 (x, y). Returns [E,HW,L*(2r+1)^2] f32,
+    level-major channels, as lookup_pyramid_plain."""
+    E, HW, _ = coords.shape
+    f1 = fmap_pyramid[0][ii].reshape(E, HW, -1).float()
+    return torch.cat([_alt_level(f1, f2l, coords / (2.0 ** lvl), jj, radius)
+                      for lvl, f2l in enumerate(fmap_pyramid)], dim=-1)

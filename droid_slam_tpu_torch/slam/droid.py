@@ -1,24 +1,28 @@
 """Droid: the user-facing monocular tracker.
 
 Counterpart of ``droid_slam_tpu/slam/droid.py`` (``Droid.__init__``,
-``track``, ``flush``) on the per-call path the JAX package takes on the CPU:
-each arriving frame first resolves the previous frame's keyframe and
-admission decisions, then runs the frontend update, then begins this frame's
-admission test. ``terminate()`` (global BA and the trajectory filler) is not
-part of this slice.
+``track``, ``flush``, ``terminate``) on the per-call path the JAX package
+takes on the CPU: each arriving frame first resolves the previous frame's
+keyframe and admission decisions, then runs the frontend update, then begins
+this frame's admission test. ``terminate()`` runs the global BA passes and
+the trajectory filler.
 """
 
 from __future__ import annotations
 
 import functools
+import time
 
 import torch
 
 from ..config import DroidConfig
+from ..lie import se3
 from ..models import weights as weights_io
 from ..state.video import DepthVideo
+from .backend import DroidBackend
 from .frontend import DroidFrontend
 from .motion_filter import MotionFilter
+from .trajectory_filler import PoseTrajectoryFiller
 
 
 def _f32_matmuls(fn):
@@ -52,6 +56,11 @@ class Droid:
         self.filterx = MotionFilter(self.params, self.video,
                                     thresh=config.filter_thresh)
         self.frontend = DroidFrontend(self.params, self.video, config)
+        self.backend = DroidBackend(self.params, self.video, config)
+        self.traj_filler = PoseTrajectoryFiller(
+            self.params, self.video,
+            fused_epilogue=config.gru_fused_epilogue)
+        self.terminate_stats = None
 
     @torch.no_grad()
     @_f32_matmuls
@@ -73,3 +82,41 @@ class Droid:
         self._resolve_prev()
         self.frontend()
         self.frontend.finalize()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    @_f32_matmuls
+    def terminate(self, stream=None, backend_steps=(7, 12)):
+        """Finish tracking, run one global-BA pass per entry of
+        ``backend_steps`` and, given the stream of all frames (tstamp,
+        image, intrinsics), fill in the poses of the frames that are not
+        keyframes. Returns camera-to-world poses [T,7] as numpy (T: the
+        stream's frames, or the keyframes without a stream).
+
+        Wall times land in ``terminate_stats``: ``backend_s`` (per pass),
+        ``backend_edges`` (per pass), ``filler_s`` and ``total_s``."""
+        t_all = time.perf_counter()
+        self.flush()
+        del self.frontend
+
+        stats = {"backend_s": [], "backend_edges": [], "filler_s": 0.0}
+        for steps in backend_steps:
+            tic = time.perf_counter()
+            stats["backend_edges"].append(self.backend(steps))
+            self._sync()
+            stats["backend_s"].append(time.perf_counter() - tic)
+
+        if stream is not None:
+            tic = time.perf_counter()
+            traj = torch.as_tensor(self.traj_filler(stream))
+            self._sync()
+            stats["filler_s"] = time.perf_counter() - tic
+        else:
+            traj = self.video.poses[:self.video.counter].cpu()
+        out = se3.inv(se3.normalize(traj)).numpy()
+        stats["total_s"] = time.perf_counter() - t_all
+        self.terminate_stats = stats
+        return out

@@ -21,7 +21,8 @@ from ..state.graph import FactorGraph
 class DroidFrontend:
     def __init__(self, params, video, cfg):
         self.video = video
-        self.graph = FactorGraph(video, params, max_factors=48)
+        self.graph = FactorGraph(video, params, max_factors=48,
+                                 fused_epilogue=cfg.gru_fused_epilogue)
         self.t1 = 0
         self.is_initialized = False
         self.max_age = 20

@@ -22,6 +22,13 @@ from ..ops import corr_cuda
 _BF16 = torch.bfloat16
 
 
+def encode_fnet(params, images):
+    """The feature encoder alone, in bf16, on a batch of uint8 BGR images
+    [M,H,W,3] -> fmaps [M,128,h,w] (the trajectory filler's encoder)."""
+    x = nets.normalize_images(images).to(_BF16)
+    return nets.basic_encoder(params, "fnet", x, norm=True)
+
+
 class MotionFilter:
     def __init__(self, params, video, thresh: float = 2.5):
         self.params = params

@@ -1,12 +1,15 @@
-"""FactorGraph: the frontend's covisibility graph with dynamic shapes.
+"""FactorGraph: the covisibility graph with dynamic shapes.
 
-Counterpart of the frontend subset of ``droid_slam_tpu/state/graph.py``.
-Edge bookkeeping (ii, jj, age, inactive edges, NMS proposals) is host numpy;
-per-edge device state (GRU hidden state, target, weight and the 4-level
+Counterpart of ``droid_slam_tpu/state/graph.py`` for the frontend, the
+trajectory filler and the resident global BA. Edge bookkeeping (ii, jj, age,
+inactive edges, NMS proposals) is host numpy; per-edge device state (GRU
+hidden state, target, weight and, with volume correlation, the 4-level
 correlation-volume pyramid) lives in tensors in edge order, concatenated on
 add and compacted on remove. One update iteration: reproject -> corr-window
 lookup (CUDA kernel on the GPU, ops/corr_cuda.py) -> update operator +
-graph aggregation -> windowed dense BA.
+graph aggregation (optionally with the fused GRU epilogues) -> windowed
+dense BA. ``update_lowmem`` is the global BA: on-the-fly (alt) correlation
+from feature pyramids, swept over chunks of 8 source frames.
 """
 
 from __future__ import annotations
@@ -24,10 +27,17 @@ _BF16 = torch.bfloat16
 
 
 class FactorGraph:
-    def __init__(self, video, params, max_factors: int = -1):
+    def __init__(self, video, params, max_factors: int = -1,
+                 corr_impl: str = "volume", fused_epilogue: bool = False):
+        """corr_impl: "volume" (per-edge correlation pyramids, for
+        ``update``) or "alt" (none: ``update_lowmem`` correlates on the
+        fly). fused_epilogue: ``update`` runs the GRU's fused epilogues."""
+        if corr_impl not in ("volume", "alt"):
+            raise ValueError(f"corr_impl {corr_impl!r}")
         self.video = video
         self.params = params
         self.max_factors = max_factors
+        self.fused_epilogue = fused_epilogue
         self.h, self.w = video.h, video.w
         dev, hw = video.device, video.h * video.w
 
@@ -38,9 +48,9 @@ class FactorGraph:
                                device=dev)
         self.target = torch.zeros((0, 2, hw), device=dev)
         self.weight = torch.zeros((0, 2, hw), device=dev)
-        self.pyramid = [torch.zeros((0, hw, self.h >> l, self.w >> l),
-                                    dtype=_BF16, device=dev)
-                        for l in range(corr_ops.NUM_LEVELS)]
+        self.pyramid = None if corr_impl == "alt" else [
+            torch.zeros((0, hw, self.h >> l, self.w >> l), dtype=_BF16,
+                        device=dev) for l in range(corr_ops.NUM_LEVELS)]
 
         self.ii_inac = np.zeros(0, np.int64)
         self.jj_inac = np.zeros(0, np.int64)
@@ -84,13 +94,14 @@ class FactorGraph:
                                                  v.intrinsics, ii_t, jj_t)
         k, hw = len(ii), self.h * self.w
         target0 = coords.reshape(k, hw, 2).transpose(1, 2)
-        vols = corr_ops.build_pyramid(v.fmaps[ii_t], v.fmaps[jj_t])
+        if self.pyramid is not None:
+            vols = corr_ops.build_pyramid(v.fmaps[ii_t], v.fmaps[jj_t])
+            self.pyramid = [torch.cat([p, q.to(_BF16)])
+                            for p, q in zip(self.pyramid, vols)]
 
         self.net = torch.cat([self.net, v.nets[ii_t]])
         self.target = torch.cat([self.target, target0])
         self.weight = torch.cat([self.weight, torch.zeros_like(target0)])
-        self.pyramid = [torch.cat([p, q.to(_BF16)])
-                        for p, q in zip(self.pyramid, vols)]
         self.ii = np.concatenate([self.ii, ii])
         self.jj = np.concatenate([self.jj, jj])
         self.age = np.concatenate([self.age, np.zeros(k, np.int64)])
@@ -111,9 +122,13 @@ class FactorGraph:
         self.net = self.net[kept]
         self.target = self.target[kept]
         self.weight = self.weight[kept]
-        self.pyramid = [p[kept] for p in self.pyramid]
+        if self.pyramid is not None:
+            self.pyramid = [p[kept] for p in self.pyramid]
         self.ii, self.jj, self.age = (self.ii[~mask], self.jj[~mask],
                                       self.age[~mask])
+
+    def clear_edges(self):
+        self.rm_factors(np.ones(len(self.ii), bool), store=False)
 
     def rm_keyframe(self, ix: int):
         """Drop keyframe ix from the video and every edge touching it, and
@@ -138,8 +153,10 @@ class FactorGraph:
     # ------------------------------------------------------------------
 
     def update(self, t0=None, t1=None, itrs=2, use_inactive=False,
-               n_iters=1):
-        """n_iters x (update operator + ``itrs`` BA iterations)."""
+               n_iters=1, motion_only=False):
+        """n_iters x (update operator + ``itrs`` BA iterations) with free
+        poses [t0, t1); ``motion_only`` keeps the disparities fixed (the
+        trajectory filler)."""
         if not len(self.ii):
             return
         ii, jj = self.ii, self.jj
@@ -169,31 +186,96 @@ class FactorGraph:
                 eta[self._dev(frames - g0)].float()
             self.video.ba(torch.cat([tgt_inac, self.target]),
                           torch.cat([wgt_inac, self.weight]), plan,
-                          iters=itrs, lm=1e-4, ep=0.1)
+                          iters=itrs, lm=1e-4, ep=0.1,
+                          motion_only=motion_only)
         self.age += n_iters
 
     def _step(self, ii_t, jj_t, slots, agg_ii, nw, pre):
         """One update-operator pass over the active edges; updates net,
         target and weight, returns the per-frame damping [nw,h,w]."""
-        v = self.video
+        coords1, motn = self._motion(ii_t, jj_t, self.target)
         E, h, w = len(slots), self.h, self.w
+        corr = corr_cuda.lookup_pyramid_slots(
+            self.pyramid, slots, coords1.reshape(E, h * w, 2).contiguous())
+        self.net, delta, weight, eta = nets.update_module(
+            self.params, self.net, None, self._corr_nchw(corr), motn,
+            ii=agg_ii, num_frames=nw, pre=pre,
+            fused_epilogue=self.fused_epilogue)
+        self.target, self.weight = self._target_weight(coords1, delta, weight)
+        return eta
+
+    def _motion(self, ii_t, jj_t, target):
+        """coords1 [E,h,w,2] of the edges (ii, jj) at the current poses and
+        disparities, and the update operator's motion features [E,4,h,w]
+        bf16: flow from the identity grid and residual to the target."""
+        v = self.video
+        E, h, w = len(ii_t), self.h, self.w
         coords1, _, _ = pops.projective_transform(v.poses, v.disps,
                                                   v.intrinsics, ii_t, jj_t)
         coords0 = pops.coords_grid(h, w, device=coords1.device)
-        resd = self.target.reshape(E, 2, h, w).permute(0, 2, 3, 1) - coords1
+        resd = target.reshape(E, 2, h, w).permute(0, 2, 3, 1) - coords1
         motn = torch.cat([coords1 - coords0, resd], dim=-1).clamp(-64.0, 64.0)
+        return coords1, motn.to(_BF16).permute(0, 3, 1, 2)
 
-        corr = corr_cuda.lookup_pyramid_slots(
-            self.pyramid, slots, coords1.reshape(E, h * w, 2).contiguous())
-        corr = corr.to(_BF16).transpose(1, 2).reshape(E, -1, h, w)
-        self.net, delta, weight, eta = nets.update_module(
-            self.params, self.net, None, corr,
-            motn.to(_BF16).permute(0, 3, 1, 2), ii=agg_ii, num_frames=nw,
-            pre=pre)
-        self.target = (coords1.permute(0, 3, 1, 2) + delta.float()) \
-            .reshape(E, 2, h * w)
-        self.weight = weight.float().reshape(E, 2, h * w)
-        return eta
+    def _corr_nchw(self, corr):
+        """Lookup output [E,HW,196] f32 -> the corr encoder's [E,196,h,w]
+        bf16."""
+        return corr.to(_BF16).transpose(1, 2).reshape(
+            corr.shape[0], -1, self.h, self.w)
+
+    def _target_weight(self, coords1, delta, weight):
+        E, hw = len(coords1), self.h * self.w
+        return ((coords1.permute(0, 3, 1, 2) + delta.float()).reshape(E, 2, hw),
+                weight.float().reshape(E, 2, hw))
+
+    # ------------------------------------------------------------------
+    # global BA (resident)
+    # ------------------------------------------------------------------
+
+    def update_lowmem(self, steps=8, itrs=2):
+        """Global BA over all keyframes: ``steps`` x (a sweep of the update
+        operator over chunks of 8 source frames with on-the-fly correlation,
+        then ``itrs`` dense BA iterations over every edge with free poses
+        [1, t)). Counterpart of the resident path of
+        ``droid_slam_tpu/state/graph.py::update_lowmem``; the chunking bounds
+        the correlation's working set. The chunk's update operator takes the
+        full 320-channel context path (no precompute, no fused epilogue)."""
+        v = self.video
+        t = v.counter
+        ii, jj = self.ii, self.jj
+        fpyr = corr_ops.build_fmap_pyramid(v.fmaps[:t])
+        starts = range(int(ii.min()), int(jj.max()) + 1, 8)
+        chunks = [(s, np.flatnonzero((ii >= s) & (ii < s + 8)))
+                  for s in starts]
+        chunks = [(s, idx) for s, idx in chunks if len(idx)]
+        plan = ba_inference.build_plan(ii, jj, 1, t, v.device)
+        for _ in range(steps):
+            for s, idx in chunks:
+                self._lowmem_chunk(fpyr, s, idx)
+            v.ba(self.target, self.weight, plan, iters=itrs, lm=1e-5,
+                 ep=1e-2)
+            self.age += 1
+        v.dirty[:t] = True
+
+    def _lowmem_chunk(self, fpyr, g0, idx):
+        """One update-operator pass over the edges ``idx``, whose source
+        frames lie in [g0, g0+8); writes their net, target and weight, and
+        the damping of the source frames present."""
+        v = self.video
+        sel = self._dev(idx)
+        ii, jj = self.ii[idx], self.jj[idx]
+        ii_t, jj_t = self._dev(ii), self._dev(jj)
+        coords1, motn = self._motion(ii_t, jj_t, self.target[sel])
+        corr = corr_ops.alt_lookup(fpyr, coords1.reshape(len(idx), -1, 2),
+                                   ii_t, jj_t)
+        net, delta, weight, eta = nets.update_module(
+            self.params, self.net[sel], v.inps[ii_t], self._corr_nchw(corr),
+            motn, ii=ii_t - g0, num_frames=8)
+        self.net[sel] = net
+        self.target[sel], self.weight[sel] = self._target_weight(
+            coords1, delta, weight)
+        frames = np.unique(ii)
+        v.damping[self._dev(frames)] = eta[self._dev(frames - g0)].float()
 
     # ------------------------------------------------------------------
     # edge proposers

@@ -34,15 +34,20 @@ class DepthVideo:
         self.nets = torch.zeros((buffer, 128, h, w), dtype=bf16, device=dev)
         self.inps = torch.zeros((buffer, 128, h, w), dtype=bf16, device=dev)
         self.counter = 0
+        self.dirty = np.zeros(buffer, bool)  # frames changed since last read
 
     _FIELDS = ("tstamp", "poses", "disps", "intrinsics", "damping", "fmaps",
                "nets", "inps")
 
-    def append(self, tstamp, pose=None, disp=None, intrinsics=None,
-               fmap=None, net=None, inp=None):
+    def append(self, tstamp, **fields):
         """Write the next keyframe; fields left None keep their values
         (the motion model has already written the pose and disparity)."""
-        ix = self.counter
+        self.set_frame(self.counter, tstamp, **fields)
+
+    def set_frame(self, ix, tstamp, pose=None, disp=None, intrinsics=None,
+                  fmap=None, net=None, inp=None):
+        """Write frame ix (the counter grows to cover it); fields left None
+        keep their values."""
         if ix >= self.buffer:
             raise RuntimeError(
                 f"DepthVideo buffer full: keyframe index {ix} >= buffer "
@@ -59,7 +64,8 @@ class DepthVideo:
                          (self.inps, inp)):
             if val is not None:
                 buf[ix] = val
-        self.counter = ix + 1
+        self.counter = max(self.counter, ix + 1)
+        self.dirty[ix] = True
 
     def rm_keyframe(self, ix: int):
         """Remove keyframe ix: shift [ix+1, counter) down one slot."""
@@ -74,6 +80,7 @@ class DepthVideo:
         s = self.disps[:t].mean()
         self.disps[:t] /= s
         self.poses[:t, :3] *= s
+        self.dirty[:t] = True
 
     def reproject(self, ii, jj):
         """Pixels of frames ii warped into frames jj: (coords [E,h,w,2],
@@ -92,8 +99,10 @@ class DepthVideo:
                                     self.intrinsics[0], ii, jj, beta,
                                     bidirectional=bidirectional)
 
-    def ba(self, target, weight, plan, iters=2, lm=1e-4, ep=0.1):
+    def ba(self, target, weight, plan, iters=2, lm=1e-4, ep=0.1,
+           motion_only=False):
         """Dense BA over the plan's edges (target/weight [E,2,HW])."""
         self.poses, self.disps = ba_inf.ba_iterations(
             self.poses, self.disps, self.damping, self.intrinsics[0],
-            target, weight, plan, lm=lm, ep=ep, iters=iters)
+            target, weight, plan, lm=lm, ep=ep, iters=iters,
+            motion_only=motion_only)

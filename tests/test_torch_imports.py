@@ -24,7 +24,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "droid_slam_tpu_torch.ops.corr_cuda" in mods
+    for m in ("ops.corr_cuda", "ops.gru", "ops.gru_cuda", "slam.backend",
+              "slam.trajectory_filler"):
+        assert "droid_slam_tpu_torch." + m in mods
     code = (
         "import importlib, sys, runpy\n"
         f"for m in {mods!r}:\n"
@@ -53,8 +55,8 @@ def test_droid_defaults_to_cuda_and_refuses_without_it():
 
 
 def test_droid_scopes_tf32_off_to_its_calls(monkeypatch):
-    """track() and flush() run with TF32 off (f32 geometry and BA) and give
-    the caller back its own settings."""
+    """track(), flush() and terminate() run with TF32 off (f32 geometry and
+    BA) and give the caller back its own settings."""
     from droid_slam_tpu_torch.config import DroidConfig
     from droid_slam_tpu_torch.slam.droid import Droid
 
@@ -70,8 +72,9 @@ def test_droid_scopes_tf32_off_to_its_calls(monkeypatch):
         finalize = track_begin = track_finish = __call__
 
     droid = Droid(DroidConfig(image_size=(64, 96), buffer=8), device="cpu")
-    droid.frontend = droid.filterx = Stage()
+    droid.frontend = droid.filterx = droid.backend = Stage()
     droid.track(0.0, None, intrinsics=None)
     droid.flush()
-    assert seen and all(s == [False, False] for s in seen)
+    droid.terminate(backend_steps=(1,))
+    assert len(seen) == 13 and all(s == [False, False] for s in seen)
     assert [f.allow_tf32 for f in flags] == [True, True]

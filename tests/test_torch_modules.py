@@ -33,6 +33,17 @@ CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "r5_006000.npz")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Two intra-op threads: the suite runs several test processes at once,
+    and PyTorch's CPU kernels, each process spinning a thread per core,
+    slow down many times over when they outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     if os.path.exists(CKPT):

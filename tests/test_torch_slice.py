@@ -27,12 +27,20 @@ thresholds that reject a frame and drop keyframes; its thresholds sit at
 least 0.04 (admission) and 0.07 (keyframe distance) away from every value
 the two pipelines compute on these frames, well above their ~0.003 and
 ~0.03 disagreement.
+
+The bench's configuration runs a second time with the ConvGRU's fused gate
+epilogues: ``gru_fused_epilogue=True`` in the port, ``DROID_GRU_PALLAS=
+interpret`` in JAX. JAX reads that flag once at import and does not key its
+jit caches on it, so its run goes into a subprocess of its own.
 """
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
+import torch
 
 H, W = 64, 96
 N_FRAMES = 14
@@ -42,6 +50,17 @@ CONFIGS = {
     "admit_all": dict(filter_thresh=-1.0, keyframe_thresh=-1.0),
     "reject_and_drop": dict(filter_thresh=0.9, keyframe_thresh=0.3),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Two intra-op threads: the suite runs several test processes at once,
+    and PyTorch's CPU kernels, each process spinning a thread per core,
+    slow down many times over when they outnumber the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _frames(seed=11):
@@ -81,11 +100,32 @@ def _run_jax(name, frames, weights):
                 disps=np.asarray(buf.disps[:n]))
 
 
-def _run_torch(name, frames, weights, device="cpu"):
+def _run_jax_fused(name, seed, weights, tmp_path):
+    """_run_jax with the Pallas GRU epilogues (interpret mode), in a fresh
+    process."""
+    out = os.path.join(str(tmp_path), f"jax_fused_{name}_{seed}.npz")
+    code = ("import sys, numpy as np\n"
+            f"sys.path.insert(0, {os.path.dirname(__file__)!r})\n"
+            "import test_torch_slice as s\n"
+            f"r = s._run_jax({name!r}, s._frames({seed}), {weights!r})\n"
+            f"np.savez({out!r}, tstamps=r['tstamps'], edges=r['edges'], "
+            "poses=r['poses'], disps=r['disps'])\n")
+    env = dict(os.environ, DROID_GRU_PALLAS="interpret", JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with np.load(out) as d:
+        return dict(tstamps=d["tstamps"].tolist(),
+                    edges=[tuple(e) for e in d["edges"].tolist()],
+                    poses=d["poses"], disps=d["disps"])
+
+
+def _run_torch(name, frames, weights, device="cpu", fused=False):
     from droid_slam_tpu_torch.config import DroidConfig
     from droid_slam_tpu_torch.slam.droid import Droid
 
-    droid = Droid(DroidConfig(**_cfg_kwargs(name, weights)), device=device)
+    droid = Droid(DroidConfig(**_cfg_kwargs(name, weights),
+                              gru_fused_epilogue=fused), device=device)
     for t, img, intr in frames:
         droid.track(float(t), img[0], intrinsics=intr)
     droid.flush()
@@ -137,6 +177,16 @@ def test_track_slice_matches_jax(name, weights):
                        _run_jax(name, frames, weights), name)
 
 
+def test_track_slice_with_fused_gru_epilogues_matches_jax(weights,
+                                                         tmp_path):
+    """The port's fused epilogues (their plain twins, on the CPU) against
+    the JAX package's Pallas epilogues in interpret mode."""
+    frames = _frames()
+    _assert_same_track(_run_torch("admit_all", frames, weights, fused=True),
+                       _run_jax_fused("admit_all", 11, weights, tmp_path),
+                       "admit_all")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_track_slice_on_cuda_matches_cpu(name, weights):
@@ -144,7 +194,6 @@ def test_track_slice_on_cuda_matches_cpu(name, weights):
     against the CPU path of the port, with the same bounds: the two differ
     by bf16 rounding and by the order of atomic sums, as the CPU port and
     JAX do."""
-    import torch
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
     frames = _frames()
@@ -171,3 +220,13 @@ if __name__ == "__main__":
             flipped = dict(ref, disps=ref["disps"][:, :, ::-1])
             print(seed, name, "flipped left-right", _gaps(flipped, ref),
                   flush=True)
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = _run_jax_fused("admit_all", seed, CKPT, tmp)
+        got = _run_torch("admit_all", frames, CKPT, fused=True)
+        same = (got["tstamps"] == ref["tstamps"]
+                and got["edges"] == ref["edges"])
+        print(seed, "admit_all fused", "same graph" if same else
+              "graphs differ",
+              _gaps(got, ref) if got["tstamps"] == ref["tstamps"] else "",
+              flush=True)
