@@ -16,6 +16,10 @@ rolled-noise frames, with the trained weights:
                global-BA passes (7 and 12 steps) and the trajectory filler
                over the bench's filler stream (GRU epilogues and lookup).
 
+Before the paths, ``ba_global`` runs the BA alone at the JAX package's
+t=800 global-BA size (800 keyframes, 12802 edges, 30x40 plane, 2 GN
+iterations) and prints its seconds per iteration and peak memory.
+
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after, and fails if a kernel of its path was not launched. Phases
 print one JSON line each; then the kernel table, the card's name and power
@@ -44,6 +48,10 @@ H, W = 320, 512
 N_WARM, N_TIMED, N_PROF = 16, 12, 2
 BACKEND_STEPS = (7, 12)
 GRU_E = 48                     # the frontend's active edges at 320x512
+BA_T, BA_E, BA_PLANE, BA_ITERS = 800, 12802, (30, 40), 2  # global BA, t=800
+# card against CPU at T=64 (well posed): f32 against f64 on the CPU differs
+# by 1.4e-5 (poses) and 4.8e-4 (relative disparity); bounds 14x and 20x that
+BA_CPU_TOL = {"pose": 2e-4, "disp_rel": 1e-2}
 
 
 def emit(**kw):
@@ -257,6 +265,96 @@ def check_gru(dev):
     return rows
 
 
+def ba_problem(dev, T, E, h, w, seed=0, well_posed=False):
+    """A synthetic global BA as bench_ba.py builds one: poses near the
+    identity, unit disparities, random edges among T keyframes, targets
+    uniform over the plane, unit weights; free poses [1, T). Such targets
+    fit no geometry, so the step is large and its f32 rounding chaotic;
+    ``well_posed`` puts them at the current reprojection plus 0.5 px of
+    noise, with random weights, for comparisons between devices."""
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.ba import inference as ba_inf
+    from droid_slam_tpu_torch.geom import projective as pops
+    from droid_slam_tpu_torch.lie import se3
+
+    rng = np.random.default_rng(seed)
+    hw = h * w
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    poses = se3.exp(t(0.01 * rng.normal(size=(T, 6))))
+    disps = torch.ones((T, h, w), device=dev)
+    damping = 1e-6 * torch.ones((T, h, w), device=dev)
+    intr = t([320.0, 320.0, w / 2, h / 2])
+    ii = rng.integers(0, T, size=E)
+    jj = rng.integers(0, T, size=E)
+    jj = np.where(jj == ii, (ii + 1) % T, jj)
+    target = t(rng.uniform(0, w, size=(E, 2, hw)))
+    weight = torch.ones((E, 2, hw), device=dev)
+    if well_posed:
+        coords, _, _ = pops.projective_transform(
+            poses, disps, intr.expand(T, 4), torch.as_tensor(ii, device=dev),
+            torch.as_tensor(jj, device=dev))
+        target = (coords.reshape(E, hw, 2).transpose(1, 2)
+                  + t(0.5 * rng.normal(size=(E, 2, hw))))
+        weight = t(rng.uniform(0, 1, size=(E, 2, hw)))
+    plan = ba_inf.build_plan(ii, jj, 1, T, dev)
+    return poses, disps, damping, intr, target, weight, plan
+
+
+def run_ba_global(dev):
+    """``ba_iterations`` on the JAX package's t=800 global-BA case
+    (BENCH_BA_t800.json: 800 keyframes, 12802 edges, 240x320 images, so a
+    30x40 feature plane), 2 GN iterations with the global BA's damping.
+    The Schur complement is assembled from the row table; the dense form it
+    replaced would have held E_k [NW,6P,HW] twice and a [NW,6P,6P] batch.
+    Checked: finite state, a step taken, and a well-posed problem at T=64
+    on the card against the CPU."""
+    import torch
+    from droid_slam_tpu_torch.ba import inference as ba_inf
+
+    def run(dev, T, E, iters, timed=False, well_posed=False):
+        p, d, damp, intr, tgt, wgt, plan = ba_problem(
+            dev, T, E, *BA_PLANE, well_posed=well_posed)
+        if timed:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        out = ba_inf.ba_iterations(p, d, damp, intr, tgt, wgt, plan, lm=1e-5,
+                                   ep=1e-2, iters=iters)
+        if timed:
+            torch.cuda.synchronize()
+        return p, d, out, time.perf_counter() - tic, plan
+
+    _, _, _, first_s, _ = run(dev, BA_T, BA_E, 1, timed=True)
+    p0, _, (p, d), secs, plan = run(dev, BA_T, BA_E, BA_ITERS, timed=True)
+    peak = torch.cuda.max_memory_allocated()
+    NW, P = plan.k_valid.shape[0], BA_T - 1
+    hw = BA_PLANE[0] * BA_PLANE[1]
+    dense_bytes = 2 * NW * 6 * P * hw * 4 + NW * (6 * P) ** 2 * 4
+    finite = bool(torch.isfinite(p).all() and torch.isfinite(d).all())
+    moved = float((p - p0).abs().max())
+
+    # the same problem at T=64 on the card and on the CPU
+    (_, _, (pg, dg), _, _), (_, _, (pc, dc), _, _) = (
+        run(dev, 64, 1024, BA_ITERS, well_posed=True),
+        run("cpu", 64, 1024, BA_ITERS, well_posed=True))
+    pose_gap = float((pg.cpu() - pc).abs().max())
+    disp_gap = float(((dg.cpu() - dc).abs() / dc.abs().clamp(min=1.0)).max())
+    emit(phase="ba_global", keyframes=BA_T, edges=BA_E, plane=list(BA_PLANE),
+         iters=BA_ITERS, rmax=int(plan.rk_idx.shape[1]),
+         first_call_1iter_s=first_s, s_per_iter=secs / BA_ITERS,
+         peak_mem_gb=peak / 2 ** 30, dense_form_gb=dense_bytes / 2 ** 30,
+         finite=finite, pose_step=moved, small_t64_vs_cpu=dict(
+             pose_gap=pose_gap, disp_rel_gap=disp_gap, tol=BA_CPU_TOL))
+    if not finite or not moved > 0:
+        raise AssertionError(f"global BA: finite={finite}, step={moved}")
+    if not (pose_gap <= BA_CPU_TOL["pose"]
+            and disp_gap <= BA_CPU_TOL["disp_rel"]):
+        raise AssertionError(f"global BA at T=64: card and CPU differ by "
+                             f"{pose_gap} (poses), {disp_gap} (disparities)")
+    torch.cuda.empty_cache()
+
+
 def _reset_counts():
     from droid_slam_tpu_torch.ops import corr_cuda, gru_cuda
     corr_cuda.LAUNCHES = gru_cuda.LAUNCHES_A = gru_cuda.LAUNCHES_B = 0
@@ -438,6 +536,7 @@ def main():
     try:
         lookup = check_lookup(dev)
         gru = check_gru(dev)
+        run_ba_global(dev)
         droid, _, _, _ = run_track(dev, fused=False, profile=False)
         del droid
         torch.cuda.empty_cache()

@@ -12,8 +12,12 @@ the poses and back-substitute the depths. Carried over from the JAX package:
   * a step with a non-finite pose or depth update is dropped;
   * the motion-only path returns before that guard;
   * disparities are clamped to [0.001, _DISP_MAX] after the iterations.
-The Schur complement is assembled densely: E_k [P*6, HW] couples each depth
-frame k with every free pose, and S = sum_k E_k Q_k E_k^T.
+The Schur complement is assembled from the JAX package's row table: one row
+per window frame (its edges' i-side blocks summed, with that frame's pose)
+and one row per edge (its j-side block, with pose jj), grouped by depth
+frame; S = sum_k F_k Q_k F_k^T over each group F_k, 8 depth frames at a
+time, scattered into the pose system by 6x6 block. Its cost is linear in
+the edges: nothing couples a depth frame with every free pose.
 """
 
 from __future__ import annotations
@@ -28,15 +32,39 @@ from . import edge_terms
 from .solver import solve_psd
 
 _DISP_MAX = 1e6
+_SCHUR_CHUNK = 8  # depth frames per block of the Schur assembly
 
 
 class BAPlan(NamedTuple):
-    ii: torch.Tensor       # [E] long, source frames
-    jj: torch.Tensor       # [E] long, target frames
-    k_valid: torch.Tensor  # [NW] bool: window frame g0+k is a depth variable
-    g0: int                # first frame of the depth window
-    t0: int                # first free pose
-    t1: int                # end of free poses (and of the window)
+    ii: torch.Tensor         # [E] long, source frames
+    jj: torch.Tensor         # [E] long, target frames
+    k_valid: torch.Tensor    # [NW] bool: window frame g0+k is a depth variable
+    row_pose: torch.Tensor   # [NW+E] long: free pose of each Schur row, or -1
+    row_depth: torch.Tensor  # [NW+E] long: window depth frame of each row
+    rk_idx: torch.Tensor     # [NW, RMAX] long: each depth frame's rows, -1 pad
+    g0: int                  # first frame of the depth window
+    t0: int                  # first free pose
+    t1: int                  # end of free poses (and of the window)
+
+
+def build_rows(ii, jj, t0: int, t1: int, g0: int, nw: int):
+    """Schur row table of the edges (ii, jj) (host arrays) over the window
+    [g0, g0+nw): rows [0, nw) are the window frames, row nw+e is edge e.
+    Returns (row_pose, row_depth, rk_idx) as numpy; a row joins its depth
+    frame's group only if its pose is free, in row order. Counterpart of
+    ``droid_slam_tpu/ba/inference.py::_build_rows`` on exact shapes."""
+    f = g0 + np.arange(nw)
+    free = lambda x: np.where((x >= t0) & (x < t1), x - t0, -1)
+    row_pose = np.concatenate([free(f), free(jj)])
+    row_depth = np.concatenate([np.arange(nw), ii - g0])
+    rows = np.flatnonzero(row_pose >= 0)
+    rows = rows[np.argsort(row_depth[rows], kind="stable")]
+    k = row_depth[rows]
+    count = np.bincount(k, minlength=nw)
+    slot = np.arange(len(rows)) - (np.cumsum(count) - count)[k]
+    rk_idx = np.full((nw, max(int(count.max(initial=0)), 1)), -1, np.int64)
+    rk_idx[k, slot] = rows
+    return row_pose, row_depth, rk_idx
 
 
 def build_plan(ii, jj, t0: int, t1: int, device) -> BAPlan:
@@ -49,9 +77,11 @@ def build_plan(ii, jj, t0: int, t1: int, device) -> BAPlan:
     k_valid = np.zeros(end - g0, bool)
     k_valid[t0 - g0:t1 - g0] = True
     k_valid[ii - g0] = True
+    row_pose, row_depth, rk_idx = build_rows(ii, jj, t0, t1, g0, end - g0)
     as_t = lambda a: torch.as_tensor(a, device=device)
     return BAPlan(ii=as_t(ii), jj=as_t(jj), k_valid=as_t(k_valid),
-                  g0=g0, t0=int(t0), t1=int(t1))
+                  row_pose=as_t(row_pose), row_depth=as_t(row_depth),
+                  rk_idx=as_t(rk_idx), g0=g0, t0=int(t0), t1=int(t1))
 
 
 def _scatter_pose_blocks(blocks, pi, pj, P):
@@ -73,6 +103,35 @@ def _solve_pose_system(M, rhs, lm, ep):
     return solve_psd(M, rhs, refine_steps=1)
 
 
+def _schur(Ei, Ej, Q, qw, ki, plan: BAPlan, P):
+    """S = E Q E^T [P*6, P*6] and S_rhs = E Q w [P*6] from the row table,
+    and the rows Erows [NW+E,6,HW]: the window frames' summed i-side blocks,
+    then each edge's j-side block. S is summed over groups of
+    ``_SCHUR_CHUNK`` depth frames: per group, the [CK, 6*RMAX, 6*RMAX]
+    product of its rows scattered into the pose system by 6x6 block."""
+    NW, hw = Q.shape
+    rp, rk = plan.row_pose, plan.rk_idx
+    RMAX = rk.shape[1]
+    Erows = torch.cat([Ei.new_zeros((NW, 6, hw)).index_add_(0, ki, Ei), Ej])
+    S = Q.new_zeros((P * P + 1, 6, 6))
+    for c0 in range(0, NW, _SCHUR_CHUNK):
+        idx = rk[c0:c0 + _SCHUR_CHUNK]
+        CK = idx.shape[0]
+        ok = idx >= 0
+        F = Erows[idx.clamp(min=0)] * ok[..., None, None]
+        G = torch.bmm((F * Q[c0:c0 + CK, None, None]).reshape(CK, -1, hw),
+                      F.reshape(CK, -1, hw).transpose(1, 2))
+        G = G.reshape(CK, RMAX, 6, RMAX, 6).transpose(2, 3)
+        p = torch.where(ok, rp[idx.clamp(min=0)], -1)
+        p1, p2 = p[:, :, None], p[:, None, :]
+        bins = torch.where((p1 >= 0) & (p2 >= 0), p1 * P + p2, P * P)
+        S.index_add_(0, bins.reshape(-1), G.reshape(-1, 6, 6))
+    S = S[:-1].reshape(P, P, 6, 6).transpose(1, 2).reshape(P * 6, P * 6)
+    rhs = torch.bmm(Erows, qw[plan.row_depth][..., None])[..., 0]
+    S_rhs = _scatter_pose_vec(rhs, rp, P).reshape(-1)
+    return S, S_rhs, Erows
+
+
 def ba_iterations(poses, disps, damping, intrinsics, target, weight,
                   plan: BAPlan, lm=1e-4, ep=0.1, iters: int = 2,
                   motion_only: bool = False):
@@ -92,8 +151,6 @@ def ba_iterations(poses, disps, damping, intrinsics, target, weight,
     ki = ii - g0
     intr_all = intrinsics.expand(B, 4)
     eta = 0.2 * damping[g0:g0 + NW].reshape(NW, hw) + 1e-7
-    vi_ok = (pi >= 0) & (pi < P)
-    vj_ok = (pj >= 0) & (pj < P)
 
     for _ in range(iters):
         t = edge_terms.linearize(poses, disps, intr_all, target, weight,
@@ -115,21 +172,16 @@ def ba_iterations(poses, disps, damping, intrinsics, target, weight,
         Q = torch.where(plan.k_valid[:, None] & (C > 0), 1.0 / C,
                         torch.zeros_like(C))
 
-        # E_k: coupling of depth frame k with each free pose (slot P drops
-        # the rows of fixed poses)
-        Ek = Ei.new_zeros((NW * (P + 1), 6, hw))
-        Ek.index_add_(0, ki * (P + 1) + torch.where(vi_ok, pi, P), Ei)
-        Ek.index_add_(0, ki * (P + 1) + torch.where(vj_ok, pj, P), Ej)
-        Ek = Ek.reshape(NW, P + 1, 6, hw)[:, :P].reshape(NW, P * 6, hw)
-
-        S = torch.bmm(Ek * Q[:, None], Ek.transpose(1, 2)).sum(0)
-        S_rhs = torch.bmm(Ek, (Q * wz)[..., None]).sum(0)[:, 0]
+        S, S_rhs, Erows = _schur(Ei, Ej, Q, Q * wz, ki, plan, P)
         dx = _solve_pose_system(A - S, v.reshape(-1) - S_rhs, lm,
                                 ep).reshape(P, 6)
 
-        dx_bs = dx.clone()
-        dx_bs[:1] = 0.0  # EvT quirk: pose t0 never reaches the depths
-        acc = torch.einsum("krh,r->kh", Ek, dx_bs.reshape(-1))
+        # back-substitution per row; the EvT quirk: pose t0 (rp == 0) never
+        # reaches the depths
+        rp = plan.row_pose
+        dx_row = dx[rp.clamp(min=0)] * ((rp > 0)[:, None])
+        acc = Q.new_zeros((NW, hw)).index_add_(
+            0, plan.row_depth, torch.bmm(dx_row[:, None], Erows)[:, 0])
         dz = Q * (wz - acc)
 
         new_poses = poses.clone()

@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface, ``build/libdroid_torch_kernels.so`` inside the package,
-which ``ctypes`` loads. It is rebuilt only when a source is newer than the
+One ``nvcc`` process per ``csrc/*.cu``, all started together, compiles the
+sources to objects; one more links them into a shared library with a plain C
+interface, ``build/libdroid_torch_kernels.so`` inside the package, which
+``ctypes`` loads. It is rebuilt only when a source is newer than the
 library. Nothing is built at import: the first kernel launch builds.
 """
 
@@ -20,7 +21,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libdroid_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-Xcompiler", "-fPIC"]
 
 _lib = None
 last_build_seconds = 0.0  # nvcc wall time of this process's build (0: none)
@@ -46,15 +47,39 @@ def build(timeout: float = 600.0) -> str:
             >= max(os.path.getmtime(s) for s in srcs)):
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in srcs]
+    tmp = f"{LIB_PATH}.{tag}"
     tic = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True, timeout=timeout)
-    last_build_seconds = time.perf_counter() - tic
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, LIB_PATH)
+    left = lambda: max(timeout - (time.perf_counter() - tic), 1.0)
+    procs = []
+    try:
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(srcs, objs)]
+        for src, proc in zip(srcs, procs):
+            _, err = proc.communicate(timeout=left())
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"({proc.returncode}):\n{err[-4000:]}")
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True,
+                              timeout=left())
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr[-4000:]}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        last_build_seconds = time.perf_counter() - tic
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return LIB_PATH
 
 

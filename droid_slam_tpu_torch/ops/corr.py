@@ -53,8 +53,9 @@ def lookup_level_plain(vol: torch.Tensor, slots: torch.Tensor,
                        coords: torch.Tensor, radius: int = RADIUS):
     """Window lookup on one level through a slot table.
 
-    vol [EB,HW,h2,w2]; slots [EA] (edge a reads volume slots[a]);
-    coords [EA,HW,2] (x, y) at this level's scale.
+    vol [EB,HW,h2,w2]; slots [EA] (edge a reads volume slots[a]; a slot
+    outside [0, EB) reads zeros); coords [EA,HW,2] (x, y) at this level's
+    scale.
     Returns [EA,HW,(2r+1)^2] f32, x-offset-major.
     """
     EB, HW, h2, w2 = vol.shape
@@ -70,9 +71,12 @@ def lookup_level_plain(vol: torch.Tensor, slots: torch.Tensor,
     ti = torch.arange(rd + 1, dtype=coords.dtype, device=coords.device)
     xi = (x0[..., None, None] - r + ti[:, None]).expand(EA, HW, rd + 1, rd + 1)
     yj = (y0[..., None, None] - r + ti[None, :]).expand(EA, HW, rd + 1, rd + 1)
-    inb = (xi >= 0) & (xi < w2) & (yj >= 0) & (yj < h2)
+    slot_ok = (slots >= 0) & (slots < EB)      # other slots read zeros
+    inb = ((xi >= 0) & (xi < w2) & (yj >= 0) & (yj < h2)
+           & slot_ok[:, None, None, None])
     idx = torch.where(inb, yj * w2 + xi, 0).long()
-    row = slots.long()[:, None] * HW + torch.arange(HW, device=vol.device)
+    row = (torch.where(slot_ok, slots, 0).long()[:, None] * HW
+           + torch.arange(HW, device=vol.device))
     flat = row[..., None, None] * (h2 * w2) + idx
     taps = vol.reshape(-1).take(flat).float() * inb.float()
 

@@ -43,6 +43,7 @@ def _launch(pyramid, slots, coords, radius):
     _check(coords.dtype == torch.float32 and coords.is_contiguous()
            and coords.dim() == 3 and coords.shape[2] == 2,
            "coords must be contiguous f32 [EA,HW,2]")
+    _check(coords.data_ptr() % 8 == 0, "coords must be 8-byte aligned")
     EA, HW = coords.shape[:2]
     _check(slots.device == dev and slots.dtype == torch.int32
            and slots.is_contiguous() and slots.shape == (EA,),

@@ -64,9 +64,14 @@ class Droid:
 
     @torch.no_grad()
     @_f32_matmuls
-    def track(self, tstamp, image, intrinsics):
+    def track(self, tstamp, image, depth=None, intrinsics=None):
         """image: uint8 BGR [H,W,3]; intrinsics [fx, fy, cx, cy] at full
-        resolution."""
+        resolution. ``depth`` (RGB-D input) is not ported yet and must be
+        None."""
+        if depth is not None:
+            raise NotImplementedError(
+                "Droid.track: RGB-D depth input is not ported yet "
+                "(ROADMAP.md, queue 1, item 4)")
         self._resolve_prev()
         self.frontend()
         self.filterx.track_begin(tstamp, image, intrinsics)

@@ -77,6 +77,20 @@ def test_lookup_plain_zero_outside_and_nan_propagates():
                                atol=1e-4)
 
 
+def test_lookup_plain_reads_zeros_for_slots_out_of_range():
+    """A slot outside [0, EB) reads zeros, as the kernel's does; the other
+    edges are unchanged."""
+    vol, slots, coords = _inputs(7)
+    bad = slots.copy()
+    bad[1], bad[2] = len(vol) + 3, -1
+    look = lambda sl: tcorr.lookup_level_plain(
+        torch.as_tensor(vol), torch.as_tensor(sl), torch.as_tensor(coords),
+        3).numpy()
+    got, want = look(bad), look(slots)
+    assert (got[1:3] == 0).all() and np.abs(want[1:3]).max() > 0
+    np.testing.assert_array_equal(got[[0, 3]], want[[0, 3]])
+
+
 @pytest.mark.parametrize("bf16", [False, True])
 def test_build_pyramid_matches_jax(bf16):
     jnp, jcorr, corr_pallas = _jax()
@@ -126,21 +140,43 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                           torch.as_tensor(coords).to(meta), 3)
 
 
+# (h, w, EB, EA) of the kernel cases: the frontend's 40x64 plane (every
+# level read as aligned 16-byte chunks in bf16); a 10x16 plane, HW = 160 not
+# a multiple of the kernel's 64-pixel tile, whose 4- and 2-wide levels are
+# read element by element; an odd 9x13 plane (every level element by
+# element); one edge
+CUDA_CASES = {"plane_40x64": (40, 64, 8, 6), "hw_160": (10, 16, 8, 6),
+              "odd_9x13": (9, 13, 8, 6), "one_edge": (40, 64, 3, 1),
+              "nan_and_bad_slots": (40, 64, 8, 6)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain_twin(dtype):
+def test_cuda_kernel_matches_plain_twin(dtype, levels, case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
-    vol, slots, coords = _inputs(6, EB=8, EA=6, h=40, w=64)
+    h, w, EB, EA = CUDA_CASES[case]
+    vol, slots, coords = _inputs(6, EB=EB, EA=EA, h=h, w=w)
+    if case == "nan_and_bad_slots":
+        coords[0, :5] = np.nan       # NaN taps at every level
+        coords[1, 5:9] = 1e7         # far outside: zero taps
+        slots[2], slots[3] = EB + 3, -1   # slots outside [0, EB): zeros
     dev = torch.device("cuda")
     pyr = [torch.as_tensor(vol).to(dev, dtype)]
-    for _ in range(3):
+    for _ in range(levels - 1):
         pyr.append(tcorr.avg_pool2(pyr[-1]))
     s, c = torch.as_tensor(slots).to(dev), torch.as_tensor(coords).to(dev)
     before = corr_cuda.LAUNCHES
     got = corr_cuda.lookup_pyramid_slots(pyr, s, c)
     torch.cuda.synchronize()
     assert corr_cuda.LAUNCHES == before + 1
+    assert got.shape == (EA, h * w, levels * 49)
     want = tcorr.lookup_pyramid_plain(pyr, s, c)
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+    torch.testing.assert_close(got, want, atol=atol, rtol=0, equal_nan=True)
+    if case == "nan_and_bad_slots":
+        assert got[0, :5].isnan().all()
+        assert (got[1, 5:9] == 0).all()
+        assert (got[2:4] == 0).all()

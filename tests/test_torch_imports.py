@@ -78,3 +78,43 @@ def test_droid_scopes_tf32_off_to_its_calls(monkeypatch):
     droid.terminate(backend_steps=(1,))
     assert len(seen) == 13 and all(s == [False, False] for s in seen)
     assert [f.allow_tf32 for f in flags] == [True, True]
+
+
+def test_track_takes_depth_third_as_jax_does():
+    """``track(tstamp, image, depth=None, intrinsics=None)`` as in the JAX
+    package: a positional ``None`` depth with positional intrinsics tracks
+    exactly as the keyword form, and a depth map (RGB-D, not ported) is
+    refused."""
+    import numpy as np
+    from droid_slam_tpu_torch.config import DroidConfig
+    from droid_slam_tpu_torch.slam.droid import Droid
+
+    h, w = 64, 96
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 255, size=(h, w, 3)).astype(np.uint8)
+    intr = np.array([60.0, 60.0, w / 2, h / 2], np.float32)
+    cfg = DroidConfig(image_size=(h, w), buffer=8, warmup=3,
+                      filter_thresh=-1.0, keyframe_thresh=-1.0)
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        runs = []
+        for positional in (True, False):
+            droid = Droid(cfg, device="cpu")
+            for t in range(5):
+                img = np.roll(base, 3 * t, axis=1)
+                if positional:
+                    droid.track(float(t), img, None, intr)
+                else:
+                    droid.track(float(t), img, intrinsics=intr)
+            droid.flush()
+            k = droid.video.counter
+            runs.append((k, droid.video.poses[:k].clone(),
+                         droid.video.disps[:k].clone()))
+        with pytest.raises(NotImplementedError, match="RGB-D"):
+            droid.track(5.0, base, np.ones((h, w), np.float32), intr)
+    finally:
+        torch.set_num_threads(n)
+    (k1, p1, d1), (k2, p2, d2) = runs
+    assert k1 == k2 == 5
+    assert torch.equal(p1, p2) and torch.equal(d1, d2)
