@@ -5,16 +5,33 @@
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), holds each kernel
 against its plain PyTorch twin at the main path's shapes, then drives the
-port's monocular main path at 320x512 and full network width on the bench's
-rolled-noise frames, with the trained weights:
+port's main paths at full network width on the bench's rolled-noise frames,
+with the trained weights:
 
-  track        ``Droid.track()`` in the default configuration (corr lookup
-               kernel; the GRU's plain epilogues);
-  track_fused  the same frames with ``gru_fused_epilogue=True`` (all three
-               kernels), 2 of its frames profiled;
-  terminate    ``terminate(stream=...)`` on the track_fused instance: two
-               global-BA passes (7 and 12 steps) and the trajectory filler
-               over the bench's filler stream (GRU epilogues and lookup).
+  track         monocular ``Droid.track()`` at 320x512 in the default
+                configuration (corr lookup kernel; the GRU's plain
+                epilogues);
+  track_fused   the same frames with ``gru_fused_epilogue=True`` (all three
+                kernels), 2 of its frames profiled;
+  terminate     ``terminate(stream=...)`` on the track_fused instance: two
+                global-BA passes (7 and 12 steps) and the trajectory filler
+                over the bench's filler stream (GRU epilogues and lookup);
+  track_stereo  EuRoC stereo: the euroc preset at 320x512 with
+                ``stereo=True`` and ``gru_fused_epilogue=True``, then
+                ``terminate()`` with the filler on the stereo stacks; the
+                graph must hold stereo (i, i) edges;
+  track_rgbd    TUM RGB-D: the tum preset at 240x320 with a depth map per
+                frame and ``upsample=True`` (default epilogues), then
+                ``terminate()``; the keyframes must carry sensor
+                disparities and full-resolution ``disps_up``.
+
+The two input modes see one scene: a right view shifted by STEREO_SHIFT px
+(whole feature pixels) and the depth of the fronto-parallel plane that shift
+means for the rectified 0.1 baseline, depth = fx * 0.1 / STEREO_SHIFT. Each
+mode's tracked median disparity must land within PLANE_DISP_TOL of the
+plane's. Both use the bench's thresholds (every frame admitted and kept)
+and its warm-up of 8. The lookup kernel is held against its twin at both
+feature-map sizes, 40x64 and 30x40.
 
 Before the paths, ``ba_global`` runs the BA alone at the JAX package's
 t=800 global-BA size (800 keyframes, 12802 edges, 30x40 plane, 2 GN
@@ -52,6 +69,17 @@ BA_T, BA_E, BA_PLANE, BA_ITERS = 800, 12802, (30, 40), 2  # global BA, t=800
 # card against CPU at T=64 (well posed): f32 against f64 on the CPU differs
 # by 1.4e-5 (poses) and 4.8e-4 (relative disparity); bounds 14x and 20x that
 BA_CPU_TOL = {"pose": 2e-4, "disp_rel": 1e-2}
+# px between the left and right views: six feature pixels, a plane of
+# disparity 1.5 at 320x512, 1.5x from the tracker's initial disparity of 1,
+# so only the stereo edges bring its median within PLANE_DISP_TOL (at 16 px,
+# disparity 0.5, the stereo constraint is weak: two runs landed at 1.5x and
+# 3.4x of the plane)
+STEREO_SHIFT = 48
+RGBD_SIZE = (240, 320)         # the tum preset's image size
+# the plane's disparity 1/depth, which the sensor (RGB-D) or the fixed
+# stereo baseline determines: the tracked median disparity must land within
+# this factor of it
+PLANE_DISP_TOL = 1.25
 
 
 def emit(**kw):
@@ -118,17 +146,20 @@ def library_lookup(pyramid, slots, coords, radius=3):
     return torch.cat(outs, dim=-1)
 
 
-def check_lookup(dev):
+def check_lookup(dev, h, w, timed):
     """The corr-window lookup kernel against its plain twin, and PyTorch's
     ``grid_sample`` against the same twin, at the frontend update's shapes:
-    48 active edges over 64 volume slots, 4 levels of a 40x64 feature map.
-    Returns the kernel's table row (without launches)."""
+    48 active edges over 64 volume slots, 4 levels of an h x w feature map
+    (40x64 for the 320x512 paths; 30x40 for track_rgbd's 240x320, whose
+    coarser levels 15x20, 7x10 and 3x5 have odd sides). Returns the
+    kernel's table row (without launches), with its times when
+    ``timed``."""
     import numpy as np
     import torch
     from droid_slam_tpu_torch.ops import corr as corr_ops
     from droid_slam_tpu_torch.ops import corr_cuda
 
-    EB, EA, h, w = 64, 48, H // 8, W // 8
+    EB, EA = 64, 48
     HW = h * w
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -155,7 +186,9 @@ def check_lookup(dev):
         if not lib_err <= atol:
             raise AssertionError(f"grid_sample lookup ({dtype}) differs from "
                                  f"the plain twin by {lib_err} > {atol}")
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and not timed:
+            row.update(max_abs_err=err, library_max_abs_err=lib_err)
+        elif dtype == torch.bfloat16:
             ms = _time_ms(lambda: corr_cuda.lookup_pyramid_slots(pyr, slots,
                                                                  coords))
             plain_ms = _time_ms(lambda: corr_ops.lookup_pyramid_plain(
@@ -319,8 +352,10 @@ def run_ba_global(dev):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         tic = time.perf_counter()
-        out = ba_inf.ba_iterations(p, d, damp, intr, tgt, wgt, plan, lm=1e-5,
-                                   ep=1e-2, iters=iters)
+        # no sensor values: the zeros select the damping, as in the tracker
+        out = ba_inf.ba_iterations(p, d, torch.zeros_like(d), damp, intr,
+                                   tgt, wgt, plan, lm=1e-5, ep=1e-2,
+                                   iters=iters)
         if timed:
             torch.cuda.synchronize()
         return p, d, out, time.perf_counter() - tic, plan
@@ -404,6 +439,12 @@ def profile_frames(fn, frame_ms):
 def _frame(base, t):
     import numpy as np
     return np.roll(base, 4 * t, axis=1)
+
+
+def _intrinsics(h, w):
+    """The bench's pinhole (fx = 0.625 W, centred) at image size h x w."""
+    import numpy as np
+    return np.array([0.625 * w, 0.625 * w, w / 2, h / 2], np.float32)
 
 
 def run_track(dev, fused, profile):
@@ -509,6 +550,110 @@ def run_terminate(droid, base, intr):
     return counts
 
 
+def _stereo_frame(base, t):
+    """Left and right views [2,H,W,3]: the right one sees the plane
+    STEREO_SHIFT px further left, as a rectified pair at baseline 0.1."""
+    import numpy as np
+    left = _frame(base, t)
+    return np.stack([left, np.roll(left, -STEREO_SHIFT, axis=1)])
+
+
+def run_mode(dev, mode):
+    """Stereo or RGB-D tracking from a preset, then terminate(), with the
+    launch counts set to 0 before and read after. Returns the counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.config import PRESETS
+    from droid_slam_tpu_torch.slam.droid import Droid
+
+    stereo = mode == "stereo"
+    preset, (h, w) = ("euroc", (H, W)) if stereo else ("tum", RGBD_SIZE)
+    cfg = dataclasses.replace(
+        PRESETS[preset], image_size=(h, w), buffer=64, warmup=8,
+        filter_thresh=-1.0, keyframe_thresh=-1.0, weights=CKPT,
+        stereo=stereo, depth=not stereo, upsample=not stereo,
+        gru_fused_epilogue=stereo)
+    intr = _intrinsics(h, w)
+    plane = float(intr[0]) * 0.1 / STEREO_SHIFT     # depth of the plane
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 255, size=(h, w, 3)).astype(np.uint8)
+    depth = np.full((h, w), plane, np.float32)
+    image = (lambda t: _stereo_frame(base, t)) if stereo else \
+        (lambda t: _frame(base, t))
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    droid = Droid(cfg, device=dev)
+    for t in range(N_WARM):
+        droid.track(float(t), image(t), None if stereo else depth, intr)
+    torch.cuda.synchronize()
+    kf0, tic = droid.video.counter, time.perf_counter()
+    for t in range(N_WARM, N_WARM + N_TIMED):
+        droid.track(float(t), image(t), None if stereo else depth, intr)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - tic
+    kf_timed = droid.video.counter - kf0
+    droid.flush()
+    v, g = droid.video, droid.frontend.graph
+    n = v.counter
+    edges, stereo_edges = len(g.ii), int((g.ii == g.jj).sum())
+    sens_share = float((v.disps_sens[:n] > 0).float().mean())
+    track_disp = float(v.disps[:n].median())
+
+    def stream():
+        for k in range(0, n, 2):
+            yield k + 0.5, image(k if k % 4 else k + 1), intr
+
+    traj = droid.terminate(stream=stream(), backend_steps=BACKEND_STEPS)
+    torch.cuda.synchronize()
+    counts = _counts()
+    st = droid.terminate_stats
+    finite = bool(np.isfinite(traj).all()
+                  and torch.isfinite(v.poses[:n]).all()
+                  and torch.isfinite(v.disps[:n]).all())
+    up_shape = None if v.disps_up is None else [n, h, w]
+    up_finite = v.disps_up is not None and \
+        bool(torch.isfinite(v.disps_up[:n]).all())
+    emit(phase=f"track_{mode}", preset=preset, image_size=[h, w],
+         weights=os.path.basename(CKPT), frames=N_WARM + N_TIMED,
+         keyframes=n, timed_frames=N_TIMED, timed_keyframes=kf_timed,
+         timed_s=elapsed, kf_per_s=kf_timed / elapsed, edges=edges,
+         stereo_edges=stereo_edges, sensor_share=sens_share,
+         plane_disp=1.0 / plane, median_disp_tracked=track_disp,
+         median_disp_terminated=float(v.disps[:n].median()),
+         disps_up_shape=up_shape, disps_up_finite=up_finite,
+         terminate_stats=st, traj_shape=list(traj.shape), finite=finite,
+         launches=counts,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    need = ["corr_lookup"] + (["gru_epilogue_a", "gru_epilogue_b"]
+                              if stereo else [])
+    _require_launches(counts, need, f"track_{mode}")
+    if not stereo and (counts["gru_epilogue_a"] or counts["gru_epilogue_b"]):
+        raise AssertionError(f"the default configuration launched the GRU "
+                             f"epilogue kernels: {counts}")
+    if not finite or traj.shape != ((n + 1) // 2, 7):
+        raise AssertionError(f"track_{mode}: terminate returned "
+                             f"{traj.shape}, finite={finite}")
+    if n != N_WARM + N_TIMED or not all(e > 0 for e in st["backend_edges"]):
+        raise AssertionError(f"track_{mode}: {n} keyframes, backend edges "
+                             f"{st['backend_edges']}")
+    if stereo and stereo_edges == 0:
+        raise AssertionError(f"track_stereo: no (i, i) edges among {edges}")
+    if not stereo and not (sens_share > 0.9 and up_finite
+                           and tuple(v.disps_up[:n].shape) == (n, h, w)):
+        raise AssertionError(f"track_rgbd: sensor share {sens_share}, "
+                             f"disps_up finite={up_finite}")
+    if not abs(np.log(track_disp * plane)) <= np.log(PLANE_DISP_TOL):
+        raise AssertionError(f"track_{mode}: median disparity {track_disp} "
+                             f"is not within {PLANE_DISP_TOL}x of the "
+                             f"plane's {1.0 / plane}")
+    del droid
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     signal.signal(signal.SIGALRM, _deadline)
     signal.alarm(DEADLINE_S)
@@ -534,23 +679,33 @@ def main():
          lib=os.path.relpath(_build.LIB_PATH, ROOT))
 
     try:
-        lookup = check_lookup(dev)
+        lookup = check_lookup(dev, H // 8, W // 8, timed=True)
+        lookup_rgbd = check_lookup(dev, RGBD_SIZE[0] // 8, RGBD_SIZE[1] // 8,
+                                   timed=False)
         gru = check_gru(dev)
         run_ba_global(dev)
-        droid, _, _, _ = run_track(dev, fused=False, profile=False)
+        droid, _, _, c_default = run_track(dev, fused=False, profile=False)
         del droid
         torch.cuda.empty_cache()
         droid, base, intr, c_track = run_track(dev, fused=True, profile=True)
         c_term = run_terminate(droid, base, intr)
+        del droid
+        torch.cuda.empty_cache()
+        c_stereo = run_mode(dev, "stereo")
+        c_rgbd = run_mode(dev, "rgbd")
     finally:
         signal.alarm(0)
         faulthandler.cancel_dump_traceback_later()
 
-    # launches: the main path of this slice, track_fused then terminate
+    # launches over every path; each path's own counts beside them
+    paths = {"track": c_default, "track_fused": c_track,
+             "terminate": c_term, "track_stereo": c_stereo,
+             "track_rgbd": c_rgbd}
     src = "droid_slam_tpu_torch/csrc/"
     meta = {"corr_lookup": ("corr_lookup.cu",
                             "droid_slam_tpu/ops/corr_pallas.py:84",
-                            dict(atol_bf16=2e-2, atol_f32=1e-4, **lookup)),
+                            dict(atol_bf16=2e-2, atol_f32=1e-4, **lookup,
+                                 checked_at_30x40=lookup_rgbd)),
             "gru_epilogue_a": ("gru_epilogue.cu",
                                "droid_slam_tpu/ops/gru_pallas.py:72",
                                dict(atol_bf16=1e-2, atol_f32=1e-5,
@@ -560,9 +715,9 @@ def main():
                                dict(atol_bf16=1e-2, atol_f32=1e-5,
                                     **gru["gru_epilogue_b"]))}
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep,
-                    launches=c_track[name] + c_term[name],
-                    launches_track=c_track[name],
-                    launches_terminate=c_term[name], **row)
+                    launches=sum(c[name] for c in paths.values()),
+                    launches_by_path={p: c[name] for p, c in paths.items()},
+                    **row)
                for name, (f, rep, row) in meta.items()]
     emit(kernels=kernels, wall_s=time.perf_counter() - t_start)
     print(smi, flush=True)

@@ -2,18 +2,21 @@
 
 The package mirrors the JAX package's layout (``lie/se3.py``,
 ``geom/projective.py``, ``state/graph.py``, ...) so that each module's
-counterpart is easy to find. It runs the monocular synchronous tracking path:
+counterpart is easy to find. It runs the synchronous tracking path for
+monocular, stereo (``stereo=True``: [2,H,W,3] stacks) and RGB-D input (a
+depth map per frame), with optional full-resolution disparities
+(``upsample=True``):
 
-    from droid_slam_tpu_torch.config import DroidConfig
+    from droid_slam_tpu_torch.config import PRESETS
     from droid_slam_tpu_torch.slam.droid import Droid
 
-    droid = Droid(DroidConfig(image_size=(320, 512), weights=...))
-    for t, image, intrinsics in stream:
-        droid.track(t, image, intrinsics=intrinsics)
-    droid.flush()
+    droid = Droid(dataclasses.replace(PRESETS["tum"], weights=...))
+    for t, image, depth, intrinsics in stream:
+        droid.track(t, image, depth, intrinsics)
+    poses = droid.terminate(stream_of_all_frames)
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. On a
-CUDA tensor the corr-window lookup launches the hand-written kernel in
-``csrc/corr_lookup.cu``; on a CPU tensor it runs the plain PyTorch twin.
-Importing the package builds nothing and imports no JAX.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. On
+CUDA tensors the corr-window lookup and the GRU's fused epilogues launch
+the hand-written kernels of ``csrc/``; on CPU tensors their plain PyTorch
+twins run. Importing the package builds nothing and imports no JAX.
 """

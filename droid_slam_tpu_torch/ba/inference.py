@@ -11,7 +11,10 @@ the poses and back-substitute the depths. Carried over from the JAX package:
     ``idx <= 0`` quirk, ``droid_kernels.cu:1116``);
   * a step with a non-finite pose or depth update is dropped;
   * the motion-only path returns before that guard;
-  * disparities are clamped to [0.001, _DISP_MAX] after the iterations.
+  * disparities are clamped to [0.001, _DISP_MAX] after the iterations;
+  * the RGB-D prior where a sensor disparity d_s > 0 is set: C += ALPHA,
+    w -= ALPHA (d - d_s), and the eta damping only where there is none
+    (droid_slam_tpu/ba/inference.py:17-18,293-294,379-381).
 The Schur complement is assembled from the JAX package's row table: one row
 per window frame (its edges' i-side blocks summed, with that frame's pose)
 and one row per edge (its j-side block, with pose jj), grouped by depth
@@ -31,6 +34,7 @@ from ..lie import se3
 from . import edge_terms
 from .solver import solve_psd
 
+ALPHA = 0.05  # weight of the depth sensor's prior
 _DISP_MAX = 1e6
 _SCHUR_CHUNK = 8  # depth frames per block of the Schur assembly
 
@@ -132,14 +136,15 @@ def _schur(Ei, Ej, Q, qw, ki, plan: BAPlan, P):
     return S, S_rhs, Erows
 
 
-def ba_iterations(poses, disps, damping, intrinsics, target, weight,
-                  plan: BAPlan, lm=1e-4, ep=0.1, iters: int = 2,
+def ba_iterations(poses, disps, disps_sens, damping, intrinsics, target,
+                  weight, plan: BAPlan, lm=1e-4, ep=0.1, iters: int = 2,
                   motion_only: bool = False):
     """``iters`` Gauss-Newton iterations; returns new (poses, disps).
 
-    poses [B,7], disps/damping [B,h,w] are the keyframe buffers;
-    target/weight [E,2,HW] align with plan.ii/jj; intrinsics is the shared
-    [4] vector. The inputs are not modified.
+    poses [B,7], disps/disps_sens/damping [B,h,w] are the keyframe buffers
+    (disps_sens 0 where there is no sensor value); target/weight [E,2,HW]
+    align with plan.ii/jj; intrinsics is the shared [4] vector. The inputs
+    are not modified.
     """
     B, h, w = disps.shape
     hw = h * w
@@ -151,6 +156,8 @@ def ba_iterations(poses, disps, damping, intrinsics, target, weight,
     ki = ii - g0
     intr_all = intrinsics.expand(B, 4)
     eta = 0.2 * damping[g0:g0 + NW].reshape(NW, hw) + 1e-7
+    sens_w = disps_sens[g0:g0 + NW].reshape(NW, hw)
+    m_sens = (sens_w > 0).to(sens_w.dtype)
 
     for _ in range(iters):
         t = edge_terms.linearize(poses, disps, intr_all, target, weight,
@@ -167,8 +174,11 @@ def ba_iterations(poses, disps, damping, intrinsics, target, weight,
             continue
 
         Ei, Ej, Cz, bz = edge_terms.depth_blocks(t)
-        C = Cz.new_zeros((NW, hw)).index_add_(0, ki, Cz) + eta
+        C = Cz.new_zeros((NW, hw)).index_add_(0, ki, Cz)
         wz = bz.new_zeros((NW, hw)).index_add_(0, ki, bz)
+        disps_w = disps[g0:g0 + NW].reshape(NW, hw)
+        C = C + m_sens * ALPHA + (1.0 - m_sens) * eta
+        wz = wz - m_sens * ALPHA * (disps_w - sens_w)
         Q = torch.where(plan.k_valid[:, None] & (C > 0), 1.0 / C,
                         torch.zeros_like(C))
 
@@ -186,7 +196,6 @@ def ba_iterations(poses, disps, damping, intrinsics, target, weight,
 
         new_poses = poses.clone()
         new_poses[t0:t1] = se3.retr(poses[t0:t1], dx)
-        disps_w = disps[g0:g0 + NW].reshape(NW, hw)
         new_disps = disps.clone()
         new_disps[g0:g0 + NW] = torch.where(
             plan.k_valid[:, None], disps_w + dz, disps_w).reshape(NW, h, w)

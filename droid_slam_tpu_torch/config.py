@@ -1,5 +1,6 @@
-"""Configuration of the monocular path (tracking and ``terminate()``), with
-the field names and defaults of ``droid_slam_tpu/config.py``."""
+"""Configuration of the tracking path (``track()`` and ``terminate()``), with
+the field names, defaults and per-dataset presets of
+``droid_slam_tpu/config.py``."""
 
 from __future__ import annotations
 
@@ -9,9 +10,16 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass
 class DroidConfig:
-    # capacity / resolution
+    # capacity / resolution / input
     buffer: int = 512
     image_size: Tuple[int, int] = (240, 320)
+    # each frame is a rectified [2,H,W,3] stack, left then right
+    stereo: bool = False
+    # the caller passes a depth map per frame (RGB-D); recorded for the
+    # callers, as in JAX: tracking takes the depth map whenever it is given
+    depth: bool = False
+    # convex upsampling of the disparities to full resolution (disps_up)
+    upsample: bool = False
 
     # motion filter
     filter_thresh: float = 2.4
@@ -36,15 +44,40 @@ class DroidConfig:
     # counterpart of DROID_GRU_PALLAS=1, off by default as in JAX
     gru_fused_epilogue: bool = False
 
-    # weights: a ``.npz`` of the JAX package's parameters, or None for a
-    # seeded random initialization
+    # weights: a ``.npz`` of the JAX package's parameters, a reference-format
+    # ``.pth`` state_dict, or None for a seeded random initialization
     weights: Optional[str] = None
 
 
+# per-dataset tuned defaults: the reference's evaluation scripts' argparse
+# defaults (droid_slam_tpu/config.py:52-85)
 PRESETS = {
+    "demo": DroidConfig(),
+    "tartanair": DroidConfig(
+        buffer=1000, image_size=(384, 512), beta=0.3, filter_thresh=2.5,
+        warmup=12, keyframe_thresh=3.0, frontend_thresh=15.0,
+        frontend_window=20, frontend_radius=1, frontend_nms=1,
+        backend_thresh=20.0, backend_radius=2, backend_nms=3,
+        motion_damping=0.5),
     "euroc": DroidConfig(
         buffer=512, image_size=(320, 512), beta=0.3, filter_thresh=2.4,
         warmup=15, keyframe_thresh=3.0, frontend_thresh=17.5,
         frontend_window=20, frontend_radius=2, frontend_nms=1,
         backend_thresh=24.0, backend_radius=2, backend_nms=2),
+    "tum": DroidConfig(
+        buffer=512, image_size=(240, 320), beta=0.3, filter_thresh=1.5,
+        warmup=12, keyframe_thresh=2.0, frontend_thresh=12.0,
+        frontend_window=25, frontend_radius=2, frontend_nms=1,
+        backend_thresh=20.0, backend_radius=2, backend_nms=3,
+        motion_damping=0.5),
+    # eth3d: the evaluation resizes every sequence to about sqrt(384*512)
+    # area and overrides image_size per sequence
+    "eth3d": DroidConfig(
+        buffer=1024, beta=0.5, filter_thresh=2.0, warmup=8,
+        keyframe_thresh=3.5, frontend_thresh=16.0, frontend_window=20,
+        frontend_radius=2, frontend_nms=1, backend_thresh=22.0,
+        backend_radius=2, backend_nms=3, motion_damping=0.5),
 }
+
+STEREO_SCALE_FACTOR = 2.5  # TartanAir stereo trajectories' scale
+EUROC_SCALE_FACTOR = 1.10  # EuRoC stereo trajectories' scale

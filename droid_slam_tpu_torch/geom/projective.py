@@ -3,10 +3,14 @@
 Counterpart of ``droid_slam_tpu/geom/projective.py``, with the same layouts:
 poses [N,7], disps [N,H,W] (inverse depth at 1/8 resolution), intrinsics
 [N,4] = [fx,fy,cx,cy] at that resolution, edge lists ii/jj [E]; outputs are
-edge-major [E,H,W,...]. Homogeneous points are X = [x, y, 1, d].
+edge-major [E,H,W,...]. Homogeneous points are X = [x, y, 1, d]. A stereo
+edge (ii == jj) joins a keyframe's left view to its right view: its relative
+pose is the fixed rectified baseline Gij = [-0.1,0,0, 0,0,0,1].
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -14,6 +18,12 @@ from ..lie import se3
 
 MIN_DEPTH = 0.2
 MIN_DEPTH_BA = 0.25
+
+
+@functools.lru_cache(maxsize=None)
+def _stereo_gij(dtype, device):
+    """The stereo edges' Gij, made once per device (no copy per call)."""
+    return torch.tensor([-0.1, 0, 0, 0, 0, 0, 1], dtype=dtype, device=device)
 
 
 def coords_grid(ht: int, wd: int, dtype=torch.float32, device=None):
@@ -48,8 +58,12 @@ def proj(X, intrinsics):
 
 
 def relative_poses(poses, ii, jj):
-    """Gij = poses[jj] * poses[ii]^-1 (monocular: no stereo edges)."""
-    return se3.relative(poses[ii], poses[jj])
+    """Gij = poses[jj] * poses[ii]^-1, and the rectified baseline on stereo
+    edges (droid_slam_tpu/geom/projective.py:103-108). The frame distance
+    (geom/distance.py) takes no such override."""
+    Gij = se3.relative(poses[ii], poses[jj])
+    return torch.where((ii == jj)[..., None],
+                       _stereo_gij(Gij.dtype, Gij.device), Gij)
 
 
 def projective_transform(poses, disps, intrinsics, ii, jj, jacobian=False,

@@ -6,7 +6,9 @@ contributions are precomputed once per update call (``gru_context_pre``) and
 the zr and q convolutions take ``[net | corr,flow features]`` in one conv
 each. With ``fused_epilogue`` (the JAX package's ``DROID_GRU_PALLAS=1``) the
 GRU instead runs its gate arithmetic in the two fused epilogues of
-``ops/gru_cuda.py``. The upsampling head is not ported yet.
+``ops/gru_cuda.py``. ``graph_agg`` also runs the upsampling-mask head on
+request, and ``upsample_disp`` turns a mask into full-resolution
+disparities (convex upsampling).
 """
 
 from __future__ import annotations
@@ -54,11 +56,15 @@ def normalize_images(images_bgr_u8: torch.Tensor) -> torch.Tensor:
     return ((x - mean) / std).permute(0, 3, 1, 2).contiguous()
 
 
-def extract_features(params, images_bgr_u8, compute_dtype=torch.float32):
-    """fnet + cnet: (fmap, tanh(net), relu(inp)), each [N,128,h,w]."""
+def extract_features(params, images_bgr_u8, compute_dtype=torch.float32,
+                     cnet_views=None):
+    """fnet + cnet: (fmap [N,128,h,w], tanh(net), relu(inp)). cnet runs on
+    the first ``cnet_views`` images only (all when None): a stereo frame
+    takes its context from the left view."""
     x = normalize_images(images_bgr_u8).to(compute_dtype)
     fmap = basic_encoder(params, "fnet", x, norm=True)
-    net, inp = basic_encoder(params, "cnet", x, norm=False).split(128, dim=1)
+    net, inp = basic_encoder(params, "cnet", x[:cnet_views],
+                             norm=False).split(128, dim=1)
     return fmap, torch.tanh(net), F.relu(inp)
 
 
@@ -146,14 +152,15 @@ def conv_gru(params, net, inp, pre=None, fused_epilogue=False):
 # ---------------------------------------------------------------------------
 
 def update_module(params, net, inp, corr, flow=None, ii=None,
-                  num_frames=None, pre=None, fused_epilogue=False):
+                  num_frames=None, pre=None, fused_epilogue=False,
+                  compute_upmask=False):
     """Update operator on a batch of edges (``fused_epilogue``: see
     ``conv_gru``; it applies only with ``pre``).
 
     net/inp [E,128,h,w], corr [E,196,h,w], flow [E,4,h,w] (zeros if None).
-    Returns (net, delta [E,2,h,w], weight [E,2,h,w]), plus the per-frame
-    damping eta [num_frames,h,w] when ``ii`` (source frame of each edge, in
-    [0, num_frames)) is given.
+    Returns (net, delta [E,2,h,w], weight [E,2,h,w]), plus, when ``ii``
+    (source frame of each edge, in [0, num_frames)) is given, the per-frame
+    damping eta [num_frames,h,w] and upsampling mask (``graph_agg``).
     """
     E, _, h, w = net.shape
     if flow is None:
@@ -185,16 +192,49 @@ def update_module(params, net, inp, corr, flow=None, ii=None,
     weight = torch.sigmoid(head[:, 2:])
     if ii is None:
         return net, delta, weight
-    return net, delta, weight, graph_agg(params, net, ii, num_frames)
+    eta, upmask = graph_agg(params, net, ii, num_frames,
+                            compute_upmask=compute_upmask)
+    return net, delta, weight, eta, upmask
 
 
-def graph_agg(params, net, ii, num_frames):
-    """Mean over the edges of each source frame, then the damping head:
-    eta [num_frames,h,w] (frames without edges get the head of zeros)."""
+def graph_agg(params, net, ii, num_frames, compute_upmask=False):
+    """Mean over the edges of each source frame, then the damping head and,
+    with ``compute_upmask``, the upsampling-mask head: (eta [num_frames,h,w],
+    upmask [num_frames,576,h,w] in the network's dtype, or None). Frames
+    without edges get the heads of zeros."""
     x = F.relu(conv2d(params, "update.agg.conv1", net))
     counts = x.new_zeros(num_frames).index_add_(0, ii, x.new_ones(x.shape[0]))
     sums = x.new_zeros((num_frames,) + x.shape[1:]).index_add_(0, ii, x)
     mean = sums / counts.clamp(min=1.0)[:, None, None, None]
     y = F.relu(conv2d(params, "update.agg.conv2", mean))
     eta = F.softplus(conv2d(params, "update.agg.eta.0", y))
-    return 0.01 * eta[:, 0]
+    upmask = (conv2d(params, "update.agg.upmask.0", y) if compute_upmask
+              else None)
+    return 0.01 * eta[:, 0], upmask
+
+
+# ---------------------------------------------------------------------------
+# convex upsampling (droid_slam_tpu/models/nets.py:359-385)
+# ---------------------------------------------------------------------------
+
+def cvx_upsample(data, mask):
+    """data [N,dim,h,w], mask [N,576,h,w] -> [N,dim,8h,8w] in f32.
+
+    Each full-resolution pixel is a convex combination of the 3x3
+    neighbourhood of its feature pixel: the mask's channels are laid out
+    [9, 8, 8] (neighbour, y-subpixel, x-subpixel), neighbours row-major, and
+    softmax-normalised over the 9. The combination is written as products
+    and a sum over the 9 neighbours in f32 (no matmul, so TF32 cannot
+    enter), as the JAX package's ``precision="highest"`` einsum computes
+    it."""
+    N, dim, h, w = data.shape
+    mask = torch.softmax(mask.float().reshape(N, 1, 9, 8, 8, h, w), dim=2)
+    patches = F.unfold(data.float(), (3, 3), padding=1)
+    patches = patches.reshape(N, dim, 9, 1, 1, h, w)
+    up = (mask * patches).sum(2)                     # [N,dim,8(y),8(x),h,w]
+    return up.permute(0, 1, 4, 2, 5, 3).reshape(N, dim, 8 * h, 8 * w)
+
+
+def upsample_disp(disp, mask):
+    """disp [N,h,w], mask [N,576,h,w] -> [N,8h,8w] f32."""
+    return cvx_upsample(disp[:, None], mask)[:, 0]

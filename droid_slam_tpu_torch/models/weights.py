@@ -1,9 +1,11 @@
-"""Parameters: the JAX package's ``.npz`` checkpoints, or a seeded random
-initialization with the reference's scheme.
+"""Parameters: the JAX package's ``.npz`` checkpoints, the reference's
+``.pth`` state_dicts, or a seeded random initialization with the
+reference's scheme.
 
 The JAX package stores conv weights HWIO (``droid_slam_tpu/models/
 weights.py``); PyTorch convolutions take OIHW. ``from_jax_params`` carries a
-JAX parameter dict across and ``to_jax_params`` is its exact inverse.
+JAX parameter dict across and ``to_jax_params`` is its exact inverse. A
+``.pth`` is already OIHW and is read as it is (``load_pth``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,23 @@ def to_jax_params(state: dict) -> dict:
 def load_npz(path: str) -> dict:
     with np.load(path) as data:
         return from_jax_params({k: data[k] for k in data.files})
+
+
+# the reference network's flow and weight heads have 3 output rows; the
+# tracker reads 2 (droid_slam_tpu/models/weights.py:14,24-27)
+_HEAD_SLICE = ("update.weight.2", "update.delta.2")
+
+
+def load_pth(path: str) -> dict:
+    """A reference-format ``droid.pth`` state_dict: the ``module.`` prefix
+    stripped and the 3-row heads sliced to 2 rows, convolutions kept OIHW."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    state = {k.replace("module.", ""): v for k, v in state.items()}
+    for head in _HEAD_SLICE:
+        if head + ".weight" in state and state[head + ".weight"].shape[0] == 3:
+            state[head + ".weight"] = state[head + ".weight"][:2]
+            state[head + ".bias"] = state[head + ".bias"][:2]
+    return {k: v.float().contiguous() for k, v in state.items()}
 
 
 def _encoder_shapes(prefix, out_dim):
@@ -98,7 +117,13 @@ def init_params(seed: int = 0) -> dict:
 
 
 def load(path, device) -> dict:
-    """Parameters from ``path`` (``.npz``), or seeded random ones when
-    ``path`` is None, on ``device``."""
-    params = init_params(0) if path is None else load_npz(path)
+    """Parameters from ``path`` (a ``.npz`` of the JAX package's, any other
+    file a ``.pth`` state_dict), or seeded random ones when ``path`` is
+    None, on ``device``."""
+    if path is None:
+        params = init_params(0)
+    elif str(path).endswith(".npz"):
+        params = load_npz(path)
+    else:
+        params = load_pth(path)
     return {k: v.to(device) for k, v in params.items()}

@@ -147,7 +147,10 @@ def _alt_level(f1, f2l, coords, jj, radius):
 
 def alt_lookup(fmap_pyramid, coords, ii, jj, radius: int = RADIUS):
     """Correlation windows of the edges (ii -> jj) computed from the feature
-    pyramid (build_fmap_pyramid) directly, without volumes.
+    pyramid (build_fmap_pyramid) directly, without volumes. ii and jj are
+    rows of the pyramid: frames, or with several views per frame the
+    view-flattened rows n*c + view (a stereo edge's target row is its
+    frame's right view).
 
     coords [E,HW,2] level-0 (x, y). Returns [E,HW,L*(2r+1)^2] f32,
     level-major channels, as lookup_pyramid_plain."""

@@ -1,4 +1,4 @@
-"""Droid: the user-facing monocular tracker.
+"""Droid: the user-facing tracker, for monocular, stereo and RGB-D input.
 
 Counterpart of ``droid_slam_tpu/slam/droid.py`` (``Droid.__init__``,
 ``track``, ``flush``, ``terminate``) on the per-call path the JAX package
@@ -52,7 +52,9 @@ class Droid:
         self.config = config
         self.device = device
         self.params = weights_io.load(config.weights, device)
-        self.video = DepthVideo(config.image_size, config.buffer, device)
+        self.video = DepthVideo(config.image_size, config.buffer, device,
+                                stereo=config.stereo,
+                                upsample=config.upsample)
         self.filterx = MotionFilter(self.params, self.video,
                                     thresh=config.filter_thresh)
         self.frontend = DroidFrontend(self.params, self.video, config)
@@ -65,16 +67,13 @@ class Droid:
     @torch.no_grad()
     @_f32_matmuls
     def track(self, tstamp, image, depth=None, intrinsics=None):
-        """image: uint8 BGR [H,W,3]; intrinsics [fx, fy, cx, cy] at full
-        resolution. ``depth`` (RGB-D input) is not ported yet and must be
-        None."""
-        if depth is not None:
-            raise NotImplementedError(
-                "Droid.track: RGB-D depth input is not ported yet "
-                "(ROADMAP.md, queue 1, item 4)")
+        """image: uint8 BGR [H,W,3], or with ``config.stereo`` a rectified
+        stack [2,H,W,3], left view first; depth: None, or a depth map
+        [H,W] f32 (RGB-D; values <= 0 mark pixels without depth);
+        intrinsics [fx, fy, cx, cy] at full resolution."""
         self._resolve_prev()
         self.frontend()
-        self.filterx.track_begin(tstamp, image, intrinsics)
+        self.filterx.track_begin(tstamp, image, depth, intrinsics)
 
     def _resolve_prev(self):
         self.frontend.finalize()
@@ -97,9 +96,9 @@ class Droid:
     def terminate(self, stream=None, backend_steps=(7, 12)):
         """Finish tracking, run one global-BA pass per entry of
         ``backend_steps`` and, given the stream of all frames (tstamp,
-        image, intrinsics), fill in the poses of the frames that are not
-        keyframes. Returns camera-to-world poses [T,7] as numpy (T: the
-        stream's frames, or the keyframes without a stream).
+        image or stereo stack, intrinsics), fill in the poses of the frames
+        that are not keyframes. Returns camera-to-world poses [T,7] as numpy
+        (T: the stream's frames, or the keyframes without a stream).
 
         Wall times land in ``terminate_stats``: ``backend_s`` (per pass),
         ``backend_edges`` (per pass), ``filler_s`` and ``total_s``."""

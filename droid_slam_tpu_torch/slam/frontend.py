@@ -6,7 +6,9 @@ iterations), then per keyframe: age-based eviction, proximity edges,
 ``iters1`` updates, the keyframe-distance probe, and, when the keyframe is
 kept, ``iters2`` more updates and the motion model for the next frame. The
 keyframe decision is applied one frame late (``finalize``), as in the JAX
-pipeline, so that edge sets match it after ``flush``.
+pipeline, so that edge sets match it after ``flush``. With a depth sensor,
+each keyframe update first gives the newest keyframe its sensor disparity
+(``sens_frame``; the initialization does not, as in JAX).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ class DroidFrontend:
     def __init__(self, params, video, cfg):
         self.video = video
         self.graph = FactorGraph(video, params, max_factors=48,
-                                 fused_epilogue=cfg.gru_fused_epilogue)
+                                 fused_epilogue=cfg.gru_fused_epilogue,
+                                 upsample=cfg.upsample)
         self.t1 = 0
         self.is_initialized = False
         self.max_age = 20
@@ -55,7 +58,8 @@ class DroidFrontend:
             self.t1 - 5, max(self.t1 - self.frontend_window, 0),
             rad=self.frontend_radius, nms=self.frontend_nms,
             thresh=self.frontend_thresh, beta=self.beta, remove=True)
-        g.update(None, None, use_inactive=True, n_iters=self.iters1)
+        g.update(None, None, use_inactive=True, n_iters=self.iters1,
+                 sens_frame=self.t1 - 1)
 
         v = self.video
         pair = torch.tensor([[self.t1 - 4], [self.t1 - 2]], device=v.device)

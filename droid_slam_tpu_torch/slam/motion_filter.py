@@ -1,11 +1,13 @@
 """MotionFilter: per-frame feature extraction and keyframe admission.
 
 Counterpart of ``droid_slam_tpu/slam/motion_filter.py`` on its per-call
-path. Every frame is encoded (fnet + cnet, bf16); one zero-flow update
+path. Every frame is encoded in bf16: fnet on each of its views (one, or a
+stereo pair), cnet on the left view. One zero-flow update of the left views
 against the last keyframe gives the mean flow-correction magnitude, and the
 frame is admitted as a keyframe when it exceeds the threshold. The test for
 frame t is begun when t arrives (``track_begin``) and resolved when t+1
-arrives (``track_finish``), as in the JAX pipeline.
+arrives (``track_finish``), as in the JAX pipeline; an admitted frame takes
+its depth map (RGB-D) into the video with it.
 """
 
 from __future__ import annotations
@@ -37,17 +39,20 @@ class MotionFilter:
         self.fmap = self.net = self.inp = None  # last keyframe's features
         self._pending = None
 
-    def _encode(self, image):
-        img = torch.as_tensor(np.asarray(image), device=self.video.device)
-        fmap, net, inp = nets.extract_features(self.params, img[None],
-                                               compute_dtype=_BF16)
-        return fmap[0], net[0], inp[0]
+    def _encode(self, views):
+        """views [c,H,W,3] uint8 -> fmaps [c,128,h,w] of every view, and
+        the left view's net, inp [128,h,w]."""
+        fmap, net, inp = nets.extract_features(self.params, views,
+                                               compute_dtype=_BF16,
+                                               cnet_views=1)
+        return fmap, net[0], inp[0]
 
     def _delta(self, fmap):
-        """Mean |flow correction| of one zero-flow update vs the last
-        keyframe (the second call site of the corr-window lookup)."""
+        """Mean |flow correction| of one zero-flow update of the left views
+        vs the last keyframe (the second call site of the corr-window
+        lookup)."""
         h, w = fmap.shape[-2:]
-        pyramid = corr_ops.build_pyramid(self.fmap[None], fmap[None])
+        pyramid = corr_ops.build_pyramid(self.fmap[:1], fmap[:1])
         coords0 = pops.coords_grid(h, w, device=fmap.device)
         slots = torch.zeros(1, dtype=torch.int32, device=fmap.device)
         corr = corr_cuda.lookup_pyramid_slots(
@@ -57,27 +62,33 @@ class MotionFilter:
                                          self.inp[None], corr)
         return delta.float().norm(dim=1).mean()
 
-    def track_begin(self, tstamp, image, intrinsics):
-        """Encode the frame and start its admission test."""
-        fmap, net, inp = self._encode(image)
+    def track_begin(self, tstamp, image, depth, intrinsics):
+        """Encode the frame (a [H,W,3] image is a stack of one view) and
+        start its admission test."""
+        image = np.asarray(image)
+        if image.ndim == 3:
+            image = image[None]
+        views = torch.as_tensor(image, device=self.video.device)
+        fmap, net, inp = self._encode(views)
         if self.video.counter == 0 and self._pending is None:
             # the first frame is always a keyframe: pose Id, disparity 1
             self.fmap, self.net, self.inp = fmap, net, inp
             self.video.append(tstamp, pose=se3.identity(device=fmap.device),
-                              disp=1.0,
+                              disp=1.0, depth=depth,
                               intrinsics=np.asarray(intrinsics) / 8.0,
                               fmap=fmap, net=net, inp=inp)
             return
-        self._pending = (tstamp, intrinsics, fmap, net, inp,
+        self._pending = (tstamp, depth, intrinsics, fmap, net, inp,
                          self._delta(fmap))
 
     def track_finish(self):
         """Resolve the pending test; append the frame when admitted."""
         if self._pending is None:
             return
-        tstamp, intrinsics, fmap, net, inp, delta = self._pending
+        tstamp, depth, intrinsics, fmap, net, inp, delta = self._pending
         self._pending = None
         if float(delta) > self.thresh:
             self.fmap, self.net, self.inp = fmap, net, inp
-            self.video.append(tstamp, intrinsics=np.asarray(intrinsics) / 8.0,
+            self.video.append(tstamp, depth=depth,
+                              intrinsics=np.asarray(intrinsics) / 8.0,
                               fmap=fmap, net=net, inp=inp)

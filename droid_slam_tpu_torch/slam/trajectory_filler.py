@@ -72,12 +72,16 @@ class PoseTrajectoryFiller:
         return out
 
     def __call__(self, image_stream):
-        """image_stream yields (tstamp, image [H,W,3] uint8 BGR,
-        intrinsics [4]). Returns world-to-camera poses [T,7] (numpy) for
+        """image_stream yields (tstamp, image, intrinsics [4]); the image is
+        uint8 BGR [H,W,3], or a stereo stack [2,H,W,3] of which the left
+        view is taken. Returns world-to-camera poses [T,7] (numpy) for
         every frame of the stream."""
         poses, batch = [], []
         for tstamp, image, intrinsics in image_stream:
-            batch.append((tstamp, np.asarray(image), intrinsics))
+            image = np.asarray(image)
+            if image.ndim == 4:
+                image = image[0]
+            batch.append((tstamp, image, intrinsics))
             if len(batch) == BATCH:
                 poses.append(self._fill(*zip(*batch)))
                 batch = []

@@ -10,6 +10,12 @@ lookup (CUDA kernel on the GPU, ops/corr_cuda.py) -> update operator +
 graph aggregation (optionally with the fused GRU epilogues) -> windowed
 dense BA. ``update_lowmem`` is the global BA: on-the-fly (alt) correlation
 from feature pyramids, swept over chunks of 8 source frames.
+
+Stereo: a keyframe has two views, and an edge (i, i) joins frame i's left
+view to its right. An edge correlates the left view of ii with view
+``ii == jj`` of jj (droid_slam_tpu/state/graph.py:838,1275). With
+``upsample`` the updates also write the full-resolution disparities of their
+source frames (``video.disps_up``) from the last iteration's mask.
 """
 
 from __future__ import annotations
@@ -28,16 +34,19 @@ _BF16 = torch.bfloat16
 
 class FactorGraph:
     def __init__(self, video, params, max_factors: int = -1,
-                 corr_impl: str = "volume", fused_epilogue: bool = False):
+                 corr_impl: str = "volume", fused_epilogue: bool = False,
+                 upsample: bool = False):
         """corr_impl: "volume" (per-edge correlation pyramids, for
         ``update``) or "alt" (none: ``update_lowmem`` correlates on the
-        fly). fused_epilogue: ``update`` runs the GRU's fused epilogues."""
+        fly). fused_epilogue: ``update`` runs the GRU's fused epilogues.
+        upsample: the updates write ``video.disps_up``."""
         if corr_impl not in ("volume", "alt"):
             raise ValueError(f"corr_impl {corr_impl!r}")
         self.video = video
         self.params = params
         self.max_factors = max_factors
         self.fused_epilogue = fused_epilogue
+        self.upsample = upsample
         self.h, self.w = video.h, video.w
         dev, hw = video.device, video.h * video.w
 
@@ -95,7 +104,9 @@ class FactorGraph:
         k, hw = len(ii), self.h * self.w
         target0 = coords.reshape(k, hw, 2).transpose(1, 2)
         if self.pyramid is not None:
-            vols = corr_ops.build_pyramid(v.fmaps[ii_t], v.fmaps[jj_t])
+            view2 = self._dev((ii == jj) & v.stereo)
+            vols = corr_ops.build_pyramid(v.fmaps[ii_t, 0],
+                                          v.fmaps[jj_t, view2])
             self.pyramid = [torch.cat([p, q.to(_BF16)])
                             for p, q in zip(self.pyramid, vols)]
 
@@ -153,12 +164,18 @@ class FactorGraph:
     # ------------------------------------------------------------------
 
     def update(self, t0=None, t1=None, itrs=2, use_inactive=False,
-               n_iters=1, motion_only=False):
+               n_iters=1, motion_only=False, sens_frame=None):
         """n_iters x (update operator + ``itrs`` BA iterations) with free
         poses [t0, t1); ``motion_only`` keeps the disparities fixed (the
-        trajectory filler)."""
+        trajectory filler). First, keyframe ``sens_frame`` (when given)
+        takes its sensor disparity wherever that is set."""
         if not len(self.ii):
             return
+        v = self.video
+        if sens_frame is not None:
+            sens = v.disps_sens[sens_frame]
+            v.disps[sens_frame] = torch.where(sens > 0, sens,
+                                              v.disps[sens_frame])
         ii, jj = self.ii, self.jj
         if t0 is None:
             t0 = max(1, int(ii.min()) + 1)
@@ -182,13 +199,23 @@ class FactorGraph:
         pre = nets.gru_context_pre(self.params, self.video.inps[ii_t])
         for _ in range(n_iters):
             eta = self._step(ii_t, jj_t, slots, ii_t - g0, t1 - g0, pre)
-            self.video.damping[self._dev(frames)] = \
-                eta[self._dev(frames - g0)].float()
-            self.video.ba(torch.cat([tgt_inac, self.target]),
-                          torch.cat([wgt_inac, self.weight]), plan,
-                          iters=itrs, lm=1e-4, ep=0.1,
-                          motion_only=motion_only)
+            v.damping[self._dev(frames)] = eta[self._dev(frames - g0)].float()
+            v.ba(torch.cat([tgt_inac, self.target]),
+                 torch.cat([wgt_inac, self.weight]), plan, iters=itrs,
+                 lm=1e-4, ep=0.1, motion_only=motion_only)
         self.age += n_iters
+        if self.upsample:
+            # the mask of the last iteration, from its GRU state
+            # (droid_slam_tpu/state/graph.py:318-329,421-429)
+            _, upmask = nets.graph_agg(self.params, self.net, ii_t - g0,
+                                       t1 - g0, compute_upmask=True)
+            self._write_disps_up(frames, upmask[self._dev(frames - g0)])
+
+    def _write_disps_up(self, frames, upmask):
+        """Full-resolution disparities of ``frames`` from their masks."""
+        v = self.video
+        f = self._dev(frames)
+        v.disps_up[f] = nets.upsample_disp(v.disps[f], upmask)
 
     def _step(self, ii_t, jj_t, slots, agg_ii, nw, pre):
         """One update-operator pass over the active edges; updates net,
@@ -197,7 +224,7 @@ class FactorGraph:
         E, h, w = len(slots), self.h, self.w
         corr = corr_cuda.lookup_pyramid_slots(
             self.pyramid, slots, coords1.reshape(E, h * w, 2).contiguous())
-        self.net, delta, weight, eta = nets.update_module(
+        self.net, delta, weight, eta, _ = nets.update_module(
             self.params, self.net, None, self._corr_nchw(corr), motn,
             ii=agg_ii, num_frames=nw, pre=pre,
             fused_epilogue=self.fused_epilogue)
@@ -239,11 +266,17 @@ class FactorGraph:
         [1, t)). Counterpart of the resident path of
         ``droid_slam_tpu/state/graph.py::update_lowmem``; the chunking bounds
         the correlation's working set. The chunk's update operator takes the
-        full 320-channel context path (no precompute, no fused epilogue)."""
+        full 320-channel context path (no precompute, no fused epilogue).
+        The feature pyramid flattens the views: row n*c + k is view k of
+        frame n; with ``upsample`` each chunk writes ``disps_up`` of its
+        source frames from the disparities the step began with."""
         v = self.video
         t = v.counter
+        c = v.fmaps.shape[1]
         ii, jj = self.ii, self.jj
-        fpyr = corr_ops.build_fmap_pyramid(v.fmaps[:t])
+        fpyr = corr_ops.build_fmap_pyramid(v.fmaps[:t].reshape(
+            t * c, *v.fmaps.shape[2:]))
+        rows = (self._dev(ii * c), self._dev(jj * c + (ii == jj)))
         starts = range(int(ii.min()), int(jj.max()) + 1, 8)
         chunks = [(s, np.flatnonzero((ii >= s) & (ii < s + 8)))
                   for s in starts]
@@ -251,46 +284,55 @@ class FactorGraph:
         plan = ba_inference.build_plan(ii, jj, 1, t, v.device)
         for _ in range(steps):
             for s, idx in chunks:
-                self._lowmem_chunk(fpyr, s, idx)
+                self._lowmem_chunk(fpyr, rows, s, idx)
             v.ba(self.target, self.weight, plan, iters=itrs, lm=1e-5,
                  ep=1e-2)
             self.age += 1
         v.dirty[:t] = True
 
-    def _lowmem_chunk(self, fpyr, g0, idx):
+    def _lowmem_chunk(self, fpyr, rows, g0, idx):
         """One update-operator pass over the edges ``idx``, whose source
         frames lie in [g0, g0+8); writes their net, target and weight, and
-        the damping of the source frames present."""
+        the damping (and with ``upsample`` the full-resolution disparities)
+        of the source frames present. ``rows``: every edge's source and
+        target rows of the feature pyramid."""
         v = self.video
         sel = self._dev(idx)
         ii, jj = self.ii[idx], self.jj[idx]
         ii_t, jj_t = self._dev(ii), self._dev(jj)
         coords1, motn = self._motion(ii_t, jj_t, self.target[sel])
         corr = corr_ops.alt_lookup(fpyr, coords1.reshape(len(idx), -1, 2),
-                                   ii_t, jj_t)
-        net, delta, weight, eta = nets.update_module(
+                                   rows[0][sel], rows[1][sel])
+        net, delta, weight, eta, upmask = nets.update_module(
             self.params, self.net[sel], v.inps[ii_t], self._corr_nchw(corr),
-            motn, ii=ii_t - g0, num_frames=8)
+            motn, ii=ii_t - g0, num_frames=8, compute_upmask=self.upsample)
         self.net[sel] = net
         self.target[sel], self.weight[sel] = self._target_weight(
             coords1, delta, weight)
         frames = np.unique(ii)
         v.damping[self._dev(frames)] = eta[self._dev(frames - g0)].float()
+        if self.upsample:
+            self._write_disps_up(frames, upmask[self._dev(frames - g0)])
 
     # ------------------------------------------------------------------
     # edge proposers
     # ------------------------------------------------------------------
 
     def add_neighborhood_factors(self, t0, t1, r=3):
+        """Every pair of frames in [t0, t1) at most r apart; in stereo at
+        least 2 apart (droid_slam_tpu/state/graph.py:1609-1615)."""
         ii, jj = np.meshgrid(np.arange(t0, t1), np.arange(t0, t1),
                              indexing="ij")
         ii, jj = ii.reshape(-1), jj.reshape(-1)
-        keep = (np.abs(ii - jj) > 0) & (np.abs(ii - jj) <= r)
+        c = 1 if self.video.stereo else 0
+        keep = (np.abs(ii - jj) > c) & (np.abs(ii - jj) <= r)
         self.add_factors(ii[keep], jj[keep])
 
     def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,
                               thresh=16.0, remove=False):
-        """Greedy NMS edge proposal by frame distance."""
+        """Greedy NMS edge proposal by frame distance; in stereo each frame
+        of [t0, t) also gets its (i, i) edge (droid_slam_tpu/native/
+        plan_builder.cpp:182-193, in the same order)."""
         t = self.video.counter
         ix, jx = np.arange(t0, t), np.arange(t1, t)
         if len(ix) == 0 or len(jx) == 0:
@@ -318,6 +360,8 @@ class FactorGraph:
 
         es = []
         for i in range(t0, t):
+            if self.video.stereo:
+                es.append((i, i))   # its distance is already inf: i-rad < i
             for j in range(max(i - rad - 1, 0), i):
                 es += [(i, j), (j, i)]
                 if t1 <= j < t:

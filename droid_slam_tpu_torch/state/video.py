@@ -1,10 +1,14 @@
 """DepthVideo: the keyframe buffers, as plain tensors on one device.
 
-Counterpart of ``droid_slam_tpu/state/video.py`` for monocular tracking.
-Buffers (capacity B, feature resolution h = H/8, w = W/8):
+Counterpart of ``droid_slam_tpu/state/video.py``. Buffers (capacity B,
+image H x W, feature resolution h = H/8, w = W/8, c = 2 views per keyframe
+in stereo, else 1):
   tstamp [B]   poses [B,7] (world-to-camera, [t,q])   disps [B,h,w]
+  disps_sens [B,h,w] (sensor inverse depth, 0 where there is none)
+  disps_up [B,H,W] (full-resolution disparities; only with ``upsample``)
   intrinsics [B,4] (at 1/8 scale)   damping [B,h,w]
-  fmaps/nets/inps [B,128,h,w] bf16 (NCHW, PyTorch's convolution layout)
+  fmaps [B,c,128,h,w]   nets/inps [B,128,h,w]   bf16, NCHW (PyTorch's
+  convolution layout)
 """
 
 from __future__ import annotations
@@ -18,36 +22,53 @@ from ..lie import se3
 from ..ba import inference as ba_inf
 
 
+def sensor_disparity(depth) -> np.ndarray:
+    """Full-resolution depth [H,W] -> inverse depth at the feature pixels
+    ([3::8, 3::8]), 0 where the depth is not positive
+    (droid_slam_tpu/state/video.py:167-170)."""
+    dep = np.asarray(depth, np.float32)[3::8, 3::8]
+    return np.where(dep > 0, 1.0 / np.where(dep > 0, dep, 1.0), 0.0)
+
+
 class DepthVideo:
     def __init__(self, image_size=(480, 640), buffer: int = 512,
-                 device="cuda"):
-        self.h, self.w = h, w = image_size[0] // 8, image_size[1] // 8
+                 device="cuda", stereo: bool = False, upsample: bool = False):
+        ht, wd = image_size
+        self.h, self.w = h, w = ht // 8, wd // 8
         self.buffer = buffer
+        self.stereo = stereo
         self.device = dev = torch.device(device)
+        c = 2 if stereo else 1
         f32, bf16 = torch.float32, torch.bfloat16
         self.tstamp = torch.zeros(buffer, dtype=f32, device=dev)
         self.poses = se3.identity((buffer,), f32, dev)
         self.disps = torch.ones((buffer, h, w), dtype=f32, device=dev)
+        self.disps_sens = torch.zeros((buffer, h, w), dtype=f32, device=dev)
+        self.disps_up = (torch.zeros((buffer, ht, wd), dtype=f32, device=dev)
+                         if upsample else None)
         self.intrinsics = torch.zeros((buffer, 4), dtype=f32, device=dev)
         self.damping = torch.full((buffer, h, w), 1e-6, dtype=f32, device=dev)
-        self.fmaps = torch.zeros((buffer, 128, h, w), dtype=bf16, device=dev)
+        self.fmaps = torch.zeros((buffer, c, 128, h, w), dtype=bf16,
+                                 device=dev)
         self.nets = torch.zeros((buffer, 128, h, w), dtype=bf16, device=dev)
         self.inps = torch.zeros((buffer, 128, h, w), dtype=bf16, device=dev)
         self.counter = 0
         self.dirty = np.zeros(buffer, bool)  # frames changed since last read
 
-    _FIELDS = ("tstamp", "poses", "disps", "intrinsics", "damping", "fmaps",
-               "nets", "inps")
+    _FIELDS = ("tstamp", "poses", "disps", "disps_sens", "disps_up",
+               "intrinsics", "damping", "fmaps", "nets", "inps")
 
     def append(self, tstamp, **fields):
         """Write the next keyframe; fields left None keep their values
         (the motion model has already written the pose and disparity)."""
         self.set_frame(self.counter, tstamp, **fields)
 
-    def set_frame(self, ix, tstamp, pose=None, disp=None, intrinsics=None,
-                  fmap=None, net=None, inp=None):
+    def set_frame(self, ix, tstamp, pose=None, disp=None, depth=None,
+                  intrinsics=None, fmap=None, net=None, inp=None):
         """Write frame ix (the counter grows to cover it); fields left None
-        keep their values."""
+        keep their values. ``depth`` is a full-resolution depth map [H,W]
+        (``sensor_disparity``); ``fmap`` is [c,128,h,w], or one view
+        [128,h,w] written to every view."""
         if ix >= self.buffer:
             raise RuntimeError(
                 f"DepthVideo buffer full: keyframe index {ix} >= buffer "
@@ -57,6 +78,9 @@ class DepthVideo:
             self.poses[ix] = pose
         if disp is not None:
             self.disps[ix] = disp
+        if depth is not None:
+            self.disps_sens[ix] = torch.as_tensor(sensor_disparity(depth),
+                                                  device=self.device)
         if intrinsics is not None:
             self.intrinsics[ix] = torch.as_tensor(
                 np.asarray(intrinsics, np.float32), device=self.device)
@@ -72,7 +96,8 @@ class DepthVideo:
         t = self.counter
         for name in self._FIELDS:
             buf = getattr(self, name)
-            buf[ix:t - 1] = buf[ix + 1:t].clone()
+            if buf is not None:
+                buf[ix:t - 1] = buf[ix + 1:t].clone()
 
     def normalize(self):
         """Rescale the keyframes' mean disparity to 1 (monocular scale)."""
@@ -101,8 +126,9 @@ class DepthVideo:
 
     def ba(self, target, weight, plan, iters=2, lm=1e-4, ep=0.1,
            motion_only=False):
-        """Dense BA over the plan's edges (target/weight [E,2,HW])."""
+        """Dense BA over the plan's edges (target/weight [E,2,HW]), with the
+        sensor disparities as a prior where they are set."""
         self.poses, self.disps = ba_inf.ba_iterations(
-            self.poses, self.disps, self.damping, self.intrinsics[0],
-            target, weight, plan, lm=lm, ep=ep, iters=iters,
-            motion_only=motion_only)
+            self.poses, self.disps, self.disps_sens, self.damping,
+            self.intrinsics[0], target, weight, plan, lm=lm, ep=ep,
+            iters=iters, motion_only=motion_only)

@@ -148,7 +148,8 @@ def test_global_window_gauss_newton_iteration_matches_jax(motion_only):
     t_ = lambda a: torch.as_tensor(a)
     plan = tba.build_plan(ii, jj, t0, t1, "cpu")
     got_p, got_d = tba.ba_iterations(
-        t_(poses), t_(disps), t_(damp), t_(intr), t_(tgt), t_(wgt), plan,
+        t_(poses), t_(disps), torch.zeros_like(t_(disps)), t_(damp),
+        t_(intr), t_(tgt), t_(wgt), plan,
         lm=1e-4, ep=0.1, iters=1, motion_only=motion_only)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=2e-5)
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=2e-4,

@@ -5,6 +5,9 @@ Tolerances are those of tests/test_corr_pallas.py: 1e-4 for f32 volumes
 (the bilinear blend of the same taps, summed in another order) and 2e-2 for
 bf16 volumes (one bf16 ulp of correlation values of order 1, blended).
 
+The CUDA tests also run the kernel on a stereo frontend's plan, with the
+(i, i) edges that correlate a keyframe's left view with its right one.
+
 JAX is imported inside the tests that compare with it, so that the CUDA
 test runs on a machine without JAX:
     python -m pytest --noconftest -m cuda \
@@ -180,3 +183,48 @@ def test_cuda_kernel_matches_plain_twin(dtype, levels, case):
         assert got[0, :5].isnan().all()
         assert (got[1, 5:9] == 0).all()
         assert (got[2:4] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_matches_plain_twin_on_a_stereo_plan(dtype):
+    """A stereo frontend's plan at 320x512: each keyframe's (i, i) edge
+    correlates its left view with its right one, beside the (i, j) edges;
+    the lookup's contract (identity slots, [E,HW,196]) is unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+    from droid_slam_tpu_torch.lie import se3
+    from droid_slam_tpu_torch.state.graph import FactorGraph
+    from droid_slam_tpu_torch.state.video import DepthVideo
+
+    dev = torch.device("cuda")
+    n, h, w = 6, 40, 64
+    gen = torch.Generator(device=dev).manual_seed(8)
+    video = DepthVideo((8 * h, 8 * w), 8, dev, stereo=True)
+    for k in range(n):
+        video.append(float(k), pose=se3.exp(0.05 * torch.randn(
+            6, generator=gen, device=dev)),
+            disp=0.5 + torch.rand((h, w), generator=gen, device=dev),
+            intrinsics=[40.0, 40.0, w / 2, h / 2],
+            fmap=torch.randn((2, 128, h, w), generator=gen,
+                             device=dev).to(torch.bfloat16))
+    graph = FactorGraph(video, None)
+    ii = [0, 1, 1, 2, 3, 3, 4, 5, 5]
+    jj = [1, 0, 1, 2, 2, 3, 5, 4, 5]
+    graph.add_factors(ii, jj)
+    stereo = torch.as_tensor(graph.ii == graph.jj)
+    assert int(stereo.sum()) == 4
+    coords, _ = video.reproject(graph.ii, graph.jj)
+    E = len(graph.ii)
+    coords = coords.reshape(E, h * w, 2).contiguous()
+    pyr = [p.to(dtype) for p in graph.pyramid]
+    slots = torch.arange(E, dtype=torch.int32, device=dev)
+    before = corr_cuda.LAUNCHES
+    got = corr_cuda.lookup_pyramid_slots(pyr, slots, coords)
+    torch.cuda.synchronize()
+    assert corr_cuda.LAUNCHES == before + 1
+    want = tcorr.lookup_pyramid_plain(pyr, slots, coords)
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+    # the stereo edges' windows read the left-right volumes
+    assert got[stereo.to(dev)].abs().max() > 1.0

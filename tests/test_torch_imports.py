@@ -83,8 +83,8 @@ def test_droid_scopes_tf32_off_to_its_calls(monkeypatch):
 def test_track_takes_depth_third_as_jax_does():
     """``track(tstamp, image, depth=None, intrinsics=None)`` as in the JAX
     package: a positional ``None`` depth with positional intrinsics tracks
-    exactly as the keyword form, and a depth map (RGB-D, not ported) is
-    refused."""
+    exactly as the keyword form, and a depth map (RGB-D) is taken, not
+    refused: it lands in ``disps_sens`` as inverse depth."""
     import numpy as np
     from droid_slam_tpu_torch.config import DroidConfig
     from droid_slam_tpu_torch.slam.droid import Droid
@@ -111,10 +111,16 @@ def test_track_takes_depth_third_as_jax_does():
             k = droid.video.counter
             runs.append((k, droid.video.poses[:k].clone(),
                          droid.video.disps[:k].clone()))
-        with pytest.raises(NotImplementedError, match="RGB-D"):
-            droid.track(5.0, base, np.ones((h, w), np.float32), intr)
+        droid = Droid(cfg, device="cpu")
+        depth = np.full((h, w), 2.0, np.float32)
+        for t in range(2):
+            droid.track(float(t), base, depth, intr)
+        droid.flush()
     finally:
         torch.set_num_threads(n)
+    assert droid.video.counter == 2
+    assert torch.equal(droid.video.disps_sens[:2],
+                       torch.full((2, h // 8, w // 8), 0.5))
     (k1, p1, d1), (k2, p2, d2) = runs
     assert k1 == k2 == 5
     assert torch.equal(p1, p2) and torch.equal(d1, d2)

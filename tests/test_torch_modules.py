@@ -185,6 +185,26 @@ def test_extract_features_matches_jax(jax_params, torch_params):
         np.testing.assert_allclose(_nhwc(g), w, atol=1e-3 * np.abs(w).max())
 
 
+def test_extract_features_stereo_left_context_matches_jax(jax_params,
+                                                          torch_params):
+    """The motion filter's encoder on a stereo stack: fnet on both views,
+    cnet on the left one only (JAX's ``motion_filter.py`` encodes
+    ``images_bgr[:1]`` for the context)."""
+    rng = np.random.default_rng(16)
+    img = rng.integers(0, 255, size=(2, 64, 96, 3)).astype(np.uint8)
+    jp = {k: jnp.asarray(v) for k, v in jax_params.items()}
+    want_fmap = jnets.extract_features(jp, jnp.asarray(img))[0]
+    _, want_net, want_inp = jnets.extract_features(jp, jnp.asarray(img[:1]))
+    fmap, net, inp = tnets.extract_features(
+        torch_params, torch.as_tensor(img), cnet_views=1)
+    assert fmap.shape == (2, 128, 8, 12)
+    assert net.shape == inp.shape == (1, 128, 8, 12)
+    for g, w in ((fmap, want_fmap), (net, want_net), (inp, want_inp)):
+        w = np.asarray(w)
+        # test_extract_features_matches_jax's tolerance
+        np.testing.assert_allclose(_nhwc(g), w, atol=1e-3 * np.abs(w).max())
+
+
 @pytest.mark.parametrize("with_pre", [False, True])
 def test_update_module_matches_jax(jax_params, torch_params, with_pre):
     rng = np.random.default_rng(7)
@@ -259,7 +279,8 @@ def test_ba_one_gauss_newton_iteration_matches_jax(motion_only):
         plan, 1e-4, 0.1)
     tplan = tba.build_plan(ii, jj, t0, t1, "cpu")
     got_p, got_d = tba.ba_iterations(
-        _t(poses), _t(disps), _t(damp), _t(intr), _t(tgt), _t(wgt), tplan,
+        _t(poses), _t(disps), torch.zeros_like(_t(disps)), _t(damp),
+        _t(intr), _t(tgt), _t(wgt), tplan,
         lm=1e-4, ep=0.1, iters=1, motion_only=motion_only)
     # the step itself is compared: the update moves poses by ~1e-2 and
     # disparities by ~1e-1, and f32 Cholesky solves of the Schur system
@@ -291,8 +312,9 @@ def test_ba_motion_only_returns_before_the_finite_step_guard():
             jnp.zeros_like(jnp.asarray(disps)), jnp.asarray(damp),
             jnp.asarray(intr), jnp.asarray(pad(tgt)), jnp.asarray(pad(wgt)),
             jplan, 1e-4, 0.1)
-        tp, td = tba.ba_iterations(_t(poses), _t(disps), _t(damp), _t(intr),
-                                   _t(tgt), _t(wgt), plan, iters=1,
+        tp, td = tba.ba_iterations(_t(poses), _t(disps),
+                                   torch.zeros_like(_t(disps)), _t(damp),
+                                   _t(intr), _t(tgt), _t(wgt), plan, iters=1,
                                    motion_only=mo)
         out[mo] = (np.asarray(jp), tp.numpy(), td.numpy())
     jp, tp, _ = out[True]

@@ -212,7 +212,7 @@ def _torch_video(snap, buffer=None, device="cpu"):
     for name in ("nets", "inps"):
         getattr(v, name).copy_(torch.as_tensor(snap[name][:B])
                                .permute(0, 3, 1, 2))
-    v.fmaps.copy_(torch.as_tensor(snap["fmaps"][:B, 0]).permute(0, 3, 1, 2))
+    v.fmaps.copy_(torch.as_tensor(snap["fmaps"][:B]).permute(0, 1, 4, 2, 3))
     v.counter = snap["counter"]
     return v
 
