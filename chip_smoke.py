@@ -23,7 +23,21 @@ with the trained weights:
   track_rgbd    TUM RGB-D: the tum preset at 240x320 with a depth map per
                 frame and ``upsample=True`` (default epilogues), then
                 ``terminate()``; the keyframes must carry sensor
-                disparities and full-resolution ``disps_up``.
+                disparities and full-resolution ``disps_up``;
+  track_async_ref, track_async, track_async_process
+                ``make_droid`` on N_ASYNC frames at 320x512 (the noise
+                texture through a sliding window) with the fused
+                epilogues: the synchronous ``Droid`` (the reference), then
+                ``DroidAsync`` (global BA in a thread on its own CUDA
+                stream) and ``DroidAsyncProcess`` (global BA in a spawned
+                process, state in CUDA-shared tensors), each followed by
+                ``terminate(stream)``. Each asynchronous facade must run at
+                least 2 backend cycles before ``terminate()``, and its
+                backend's poses must match its cycles replayed by hand
+                from the inputs each merged, to REPLAY_POSE_TOL, where a
+                replay with no BA step must not; its ATE to the
+                reference's trajectory is printed. These phases run
+                PyTorch's deterministic kernels.
 
 The two input modes see one scene: a right view shifted by STEREO_SHIFT px
 (whole feature pixels) and the depth of the fronto-parallel plane that shift
@@ -37,8 +51,11 @@ Before the paths, ``ba_global`` runs the BA alone at the JAX package's
 t=800 global-BA size (800 keyframes, 12802 edges, 30x40 plane, 2 GN
 iterations) and prints its seconds per iteration and peak memory.
 
-Each path runs with the kernels' launch counts set to 0 just before it and
-read just after, and fails if a kernel of its path was not launched. Phases
+Kernel times count device time only (``_time_ms``), with the wrappers' host
+microseconds per call beside them. Each path runs with the kernels' launch
+counts set to 0 just before it and read just after, and fails if a kernel
+of its path was not launched (the asynchronous paths: in tracking and in the
+filler, each). Phases
 print one JSON line each; then the kernel table, the card's name and power
 limit, and a last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line. The run has a hard deadline. It imports neither
@@ -76,6 +93,18 @@ BA_CPU_TOL = {"pose": 2e-4, "disp_rel": 1e-2}
 # 3.4x of the plane)
 STEREO_SHIFT = 48
 RGBD_SIZE = (240, 320)         # the tum preset's image size
+# the asynchronous phases: enough frames at 320x512 for the backend, which
+# starts after 32 keyframes, to run at least 2 cycles of ASYNC_ITERS global-BA
+# steps before terminate(), with ASYNC_SLEEP s between cycles
+N_ASYNC, ASYNC_BUFFER, ASYNC_SLEEP, ASYNC_ITERS = 128, 160, 1.0, 8
+# bound on the largest gap between an asynchronous facade's backend poses
+# (after its last cycle) and those of the same cycles replayed by hand from
+# the inputs each merged (``_replay``). With PyTorch's deterministic kernels
+# the card read exactly 0 for both facades, against 9.0 and 114 for a
+# replay with no BA step and 4.5 and 2.2e8 for the merge without alignment
+# (NVIDIA H100 80GB HBM3, 700 W); the bound admits f32 rounding of poses
+# of size ~10 and nothing more
+REPLAY_POSE_TOL = 1e-5
 # the plane's disparity 1/depth, which the sensor (RGB-D) or the fixed
 # stereo baseline determines: the tracked median disparity must land within
 # this factor of it
@@ -87,9 +116,12 @@ def emit(**kw):
 
 
 def _deadline(signum, frame):
+    import multiprocessing
     print(json.dumps({"phase": "deadline", "ok": False,
                       "msg": f"past the {DEADLINE_S} s deadline"}),
           flush=True)
+    for child in multiprocessing.active_children():
+        child.kill()
     os._exit(124)
 
 
@@ -102,19 +134,36 @@ def _smi():
 
 
 def _time_ms(fn, n=25):
-    """Median of n CUDA-event timings of fn(), after one warm-up call."""
+    """(device ms per call, host µs per call) of fn(), after a warm-up.
+
+    Every function is timed one way: the summed time of the kernels and
+    copies that n calls run on the card (torch.profiler's device time),
+    over n. It holds no host time and no gap between kernels, whether fn
+    is one kernel, a chain of small ones, or waits for the card inside.
+    The host time is the wall time of the n calls' enqueue over n, with
+    the profiler off: the wrapper's Python, its allocations and its
+    launches."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     fn()
-    times = []
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
     for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[n // 2]
+    host_us = (time.perf_counter() - tic) / n * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type != DeviceType.CPU)
+    if not device_us > 0:
+        raise AssertionError("the profiler saw no device time")
+    return device_us / 1e3 / n, host_us
 
 
 def library_lookup(pyramid, slots, coords, radius=3):
@@ -189,12 +238,13 @@ def check_lookup(dev, h, w, timed):
         if dtype == torch.bfloat16 and not timed:
             row.update(max_abs_err=err, library_max_abs_err=lib_err)
         elif dtype == torch.bfloat16:
-            ms = _time_ms(lambda: corr_cuda.lookup_pyramid_slots(pyr, slots,
-                                                                 coords))
-            plain_ms = _time_ms(lambda: corr_ops.lookup_pyramid_plain(
-                pyr, slots, coords), n=21)
-            library_ms = _time_ms(lambda: library_lookup(pyr, slots, coords),
-                                  n=21)
+            ms, host_us = _time_ms(
+                lambda: corr_cuda.lookup_pyramid_slots(pyr, slots, coords))
+            plain_ms, _ = _time_ms(
+                lambda: corr_ops.lookup_pyramid_plain(pyr, slots, coords),
+                n=5)
+            library_ms, _ = _time_ms(
+                lambda: library_lookup(pyr, slots, coords), n=5)
             # bytes: output + coords + slots + the volume elements the
             # windows touch (in-range taps of each 8x8 neighbourhood)
             touched = 0
@@ -211,8 +261,9 @@ def check_lookup(dev, h, w, timed):
             ops = EA * HW * len(pyr) * (49 * 7 + 8)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / F32_FLOPS_PER_S * 1e3
-            row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, library_max_abs_err=lib_err,
+            row.update(max_abs_err=err, ms=ms, host_us=host_us,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       library_max_abs_err=lib_err,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        bytes=nbytes)
@@ -269,8 +320,8 @@ def check_gru(dev):
                 rows[name].update(max_abs_err_f32=err)
                 continue
             a = args[name]
-            ms = _time_ms(lambda: kernel(*a))
-            plain_ms = _time_ms(lambda: plain(*a))
+            ms, host_us = _time_ms(lambda: kernel(*a))
+            plain_ms, _ = _time_ms(lambda: plain(*a))
             # bytes: the channels each function reads (A: zrc, cf[:256],
             # pre_zr, net; B: qc, cf[256:], pre_q, net, z) and writes
             # (A: z, r*net; B: the new state), plus the gate biases;
@@ -283,7 +334,7 @@ def check_gru(dev):
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = E * 128 * HW * flops / F32_FLOPS_PER_S * 1e3
             rows[name].update(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                max_abs_err=err, ms=ms, host_us=host_us, plain_ms=plain_ms,
                 library_ms=None,
                 library_why="no single PyTorch call computes a 4-way sum, "
                             "an activation and a product",
@@ -292,7 +343,7 @@ def check_gru(dev):
                 bytes=nbytes)
     emit(phase="gru", edges=E, plane=[h, w], **{
         k: {kk: v[kk] for kk in ("max_abs_err", "max_abs_err_f32", "ms",
-                                 "plain_ms", "bound_ms", "bytes")}
+                                 "host_us", "plain_ms", "bound_ms", "bytes")}
         for k, v in rows.items()})
     torch.cuda.empty_cache()
     return rows
@@ -654,12 +705,297 @@ def run_mode(dev, mode):
     return counts
 
 
+def _slide_frame(base, t):
+    """Frame t of the asynchronous phases' scene: the bench's noise texture,
+    4 * N_ASYNC px wider, seen through a W-px window that moves 4 px a
+    frame. The bench rolls its image around instead, a motion no camera
+    makes."""
+    import numpy as np
+    return np.ascontiguousarray(base[:, 4 * t:4 * t + W])
+
+
+def _async_stream(base, intr, n):
+    for k in range(0, n, 2):
+        yield k + 0.5, _slide_frame(base, k if k % 4 else k + 1), intr
+
+
+def _rel_ate(traj, ref):
+    """ATE of traj against ref (camera positions, scaled Umeyama
+    alignment), over ref's RMS spread about its centroid."""
+    import numpy as np
+    from droid_slam_tpu_torch.eval.ate import ate_rmse
+    spread = np.sqrt(((ref[:, :3] - ref[:, :3].mean(0)) ** 2).sum(1).mean())
+    return float(ate_rmse(traj[:, :3], ref[:, :3])[0] / spread)
+
+
+def _host_copy(x):
+    return x.to("cpu", copy=True)
+
+
+def _record_backend_inputs(droid, kind):
+    """Keep on the host what the facade's backend merges, for ``_replay``.
+    thread: each cycle's (t0, tracker poses [0, t1), frames [t0, t1)) as
+    ``merge_frames`` receives them; process: each numbered push's slab
+    contents (poses and disparities over [0, t1), the other frame fields
+    over [t0, t1)), from which ``_process_inputs`` rebuilds what each cycle
+    read. Returns (the record, a function that ends the recording)."""
+    from droid_slam_tpu_torch.slam import async_droid
+    from droid_slam_tpu_torch.state.video import DepthVideo
+
+    fields, rec = DepthVideo.FRAME_FIELDS, []
+    if kind == "thread":
+        merge = async_droid.merge_frames
+
+        def recording_merge(video2, t0, poses1, frames):
+            rec.append((t0, _host_copy(poses1),
+                        {k: _host_copy(frames[k]) for k in fields}))
+            return merge(video2, t0, poses1, frames)
+
+        async_droid.merge_frames = recording_merge
+        return rec, lambda: setattr(async_droid, "merge_frames", merge)
+    push = droid._push
+
+    def recording_push():
+        t0, t1 = push()
+        slab = droid._slab
+        rec.append((droid._ctl["pushes"].value, t0, t1, {
+            k: _host_copy(slab[k][:t1] if k in ("poses", "disps")
+                          else slab[k][t0:t1]) for k in fields}))
+        return t0, t1
+
+    droid._push = recording_push
+    return rec, lambda: None
+
+
+def _process_inputs(droid, pushes):
+    """Each process cycle's input, (t0, poses [0, t1), frames [t0, t1)), as
+    the backend read it: the input slab as it stood after the push that the
+    cycle records it merged, rebuilt from the numbered pushes."""
+    import torch
+    from droid_slam_tpu_torch.state.video import DepthVideo
+
+    seqs = [p[0] for p in pushes]
+    if seqs != list(range(1, len(seqs) + 1)):
+        raise AssertionError(f"the recorded pushes are not 1..n: {seqs}")
+    slab = {k: torch.zeros(getattr(droid.video, k).shape,
+                           dtype=getattr(droid.video, k).dtype)
+            for k in DepthVideo.FRAME_FIELDS}
+    done, out = 0, []
+    for c in droid.cycles:
+        for _, t0, t1, frames in pushes[done:c["push"]]:
+            for k, v in frames.items():
+                if k in ("poses", "disps"):
+                    slab[k][:t1] = v
+                else:
+                    slab[k][t0:t1] = v
+        done = max(done, c["push"])
+        t0, t1 = c["t0"], c["t1"]
+        out.append((t0, slab["poses"][:t1].clone(),
+                    {k: v[t0:t1].clone() for k, v in slab.items()}))
+    return out
+
+
+def _replay(droid, inputs, iters, align=True):
+    """The facade's backend cycles again, by hand on the default stream: a
+    fresh video and ``DroidAsyncBackend`` take each cycle's input in order
+    (``merge_frames``, then ``iters`` global-BA steps). ``align=False``
+    merges without the alignment (scale 1, dG the identity): a planted
+    fault. Returns (poses [n,7] on the host, edges per cycle)."""
+    import torch
+    from droid_slam_tpu_torch.slam.async_droid import merge_frames
+    from droid_slam_tpu_torch.slam.backend import DroidAsyncBackend
+    from droid_slam_tpu_torch.slam.droid import f32_matmuls
+    from droid_slam_tpu_torch.state.video import DepthVideo
+
+    cfg, dev = droid.config, droid.device
+    v2 = DepthVideo(cfg.image_size, cfg.buffer, dev, stereo=cfg.stereo,
+                    upsample=cfg.upsample)
+    backend = DroidAsyncBackend(droid.params, v2, cfg)
+    edges = []
+    with torch.no_grad(), f32_matmuls():
+        for t0, poses1, frames in inputs:
+            poses1 = poses1.to(dev)
+            frames = {k: v.to(dev) for k, v in frames.items()}
+            if align:
+                merge_frames(v2, t0, poses1, frames)
+            else:
+                frames["poses"] = poses1[t0:]
+                v2.write_frames(t0, frames)
+            edges.append(backend(iters, normalize=False))
+    poses = v2.poses[:v2.counter].cpu()
+    del backend, v2
+    torch.cuda.empty_cache()
+    return poses, edges
+
+
+def _replay_check(droid, kind, rec):
+    """The facade's backend poses after its last cycle against its cycles
+    replayed by hand (``_replay``), and two planted faults: no BA step and
+    the merge without alignment. Returns the readings."""
+    inputs = rec if kind == "thread" else _process_inputs(droid, rec)
+    if len(inputs) != len(droid.cycles):
+        raise AssertionError(f"{len(inputs)} recorded inputs for "
+                             f"{len(droid.cycles)} backend cycles")
+    n = droid.video2.counter
+    got = droid.video2.poses[:n].cpu()
+
+    def gap(poses):
+        return (float((poses - got).abs().max())
+                if poses.shape == got.shape else float("inf"))
+
+    sound, edges = _replay(droid, inputs, ASYNC_ITERS)
+    return dict(
+        pose_gap=gap(sound),
+        control_no_ba_gap=gap(_replay(droid, inputs, 0)[0]),
+        control_no_align_gap=gap(
+            _replay(droid, inputs, ASYNC_ITERS, align=False)[0]),
+        edges_equal=edges == [c["edges"] for c in droid.cycles],
+        bound=REPLAY_POSE_TOL)
+
+
+def run_async(dev, kind, ref_traj=None):
+    """``make_droid`` with the bench's thresholds at 320x512 on the
+    sliding scene (``_slide_frame``), fused epilogues, N_ASYNC frames, then
+    ``terminate(stream)``. kind:
+    "sync" (``Droid``: the reference trajectory), "thread" (``DroidAsync``)
+    or "process" (``DroidAsyncProcess``, with DROID_ASYNC_PROCESS=1; its
+    tracking starts once the backend process is ready). The launch
+    counts are set to 0 before tracking and before terminate(), and
+    read after each. An asynchronous facade's backend poses must match its
+    cycles replayed by hand (``_replay_check``) to REPLAY_POSE_TOL, where a
+    replay with no BA step must not; its ATE to the reference trajectory is
+    printed. Returns (trajectory, counts)."""
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.config import DroidConfig
+    from droid_slam_tpu_torch.slam import make_droid
+
+    phase = {"sync": "track_async_ref", "thread": "track_async",
+             "process": "track_async_process"}[kind]
+    cfg = DroidConfig(buffer=ASYNC_BUFFER, image_size=(H, W), warmup=8,
+                      filter_thresh=-1.0, keyframe_thresh=-1.0,
+                      frontend_window=20, frontend_thresh=17.5,
+                      frontend_radius=2, frontend_nms=1, weights=CKPT,
+                      gru_fused_epilogue=True, asynchronous=kind != "sync")
+    kw = {} if kind == "sync" else dict(sleep_time=ASYNC_SLEEP,
+                                        backend_iters=ASYNC_ITERS)
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 255, size=(H, W + 4 * N_ASYNC, 3)) \
+        .astype(np.uint8)
+    intr = _intrinsics(H, W)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    saved = os.environ.pop("DROID_ASYNC_PROCESS", None)
+    if kind == "process":
+        os.environ["DROID_ASYNC_PROCESS"] = "1"
+    try:
+        t_made = time.perf_counter()
+        droid = make_droid(cfg, device=dev, **kw)
+    finally:
+        os.environ.pop("DROID_ASYNC_PROCESS", None)
+        if saved is not None:
+            os.environ["DROID_ASYNC_PROCESS"] = saved
+    rec, stop_recording = ([], lambda: None) if kind == "sync" else \
+        _record_backend_inputs(droid, kind)
+    if kind == "process":   # tracking starts with the backend ready
+        while not droid.backend_startup_s:
+            droid._check()
+            if time.perf_counter() - t_made > 300:
+                raise TimeoutError(f"{phase}: the backend process was not "
+                                   f"ready 300 s after its spawn")
+            time.sleep(0.05)
+    stamps = []
+    try:
+        for t in range(N_ASYNC):
+            droid.track(float(t), _slide_frame(base, t), intrinsics=intr)
+            stamps.append(time.time())
+        torch.cuda.current_stream().synchronize()   # the tracker's stream
+        stamps[-1] = time.time()
+        c_track = _counts()
+        cycles_before = 0 if kind == "sync" else droid.backend_cycles
+
+        _reset_counts()
+        tic = time.perf_counter()
+        traj = droid.terminate(stream=_async_stream(base, intr, N_ASYNC),
+                               backend_steps=BACKEND_STEPS)
+        torch.cuda.synchronize()
+        term_s = time.perf_counter() - tic
+        c_term = _counts()
+    finally:
+        stop_recording()
+
+    # tracking rate over the frames after the backend started (the sync
+    # reference: after the frame at which it would have started)
+    if kind == "sync":
+        start = stamps[32]
+    else:
+        start = droid.cycles[0]["start"] if droid.cycles else stamps[-1]
+    after = sum(1 for st in stamps if st > start)
+    n = droid.video.counter
+    finite = bool(np.isfinite(traj).all()
+                  and torch.isfinite(droid.video.poses[:n]).all()
+                  and torch.isfinite(droid.video.disps[:n]).all())
+    same_keyframes = True
+    if kind != "sync":   # the backend's video holds every keyframe
+        v2, m = droid.video2, droid.video2.counter
+        finite = finite and bool(torch.isfinite(v2.poses[:m]).all()
+                                 and torch.isfinite(v2.disps[:m]).all())
+        same_keyframes = m == n and bool(
+            (v2.tstamp[:n] == droid.video.tstamp[:n]).all())
+    rel_ate = None if ref_traj is None else _rel_ate(traj, ref_traj)
+    cycles = [] if kind == "sync" else [
+        {k: c[k] for k in ("t0", "t1", "scale", "edges", "s")}
+        for c in droid.cycles]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    replay = None if kind == "sync" else _replay_check(droid, kind, rec)
+    extra = {}
+    if kind == "process":
+        extra = dict(backend_startup_s=droid.terminate_stats["startup_s"],
+                     backend_peak_mem_gb=max(c["peak_gb"]
+                                             for c in droid.cycles))
+    emit(phase=phase, weights=os.path.basename(CKPT), frames=N_ASYNC,
+         keyframes=n, kf_per_s_after_backend_start=(
+             after / (stamps[-1] - start) if after else None),
+         backend_cycles_before_terminate=cycles_before, cycles=cycles,
+         terminate_s=term_s, terminate_stats=droid.terminate_stats,
+         traj_shape=list(traj.shape), finite=finite,
+         backend_has_every_keyframe=same_keyframes, rel_ate=rel_ate,
+         replay=replay, launches={"track": c_track, "terminate": c_term},
+         peak_mem_gb=peak_gb, **extra)
+    _require_launches(c_track, list(c_track), f"{phase} (tracking)")
+    _require_launches(c_term, list(c_term), f"{phase} (terminate)")
+    if not finite or traj.shape != ((N_ASYNC + 1) // 2, 7):
+        raise AssertionError(f"{phase}: terminate returned {traj.shape}, "
+                             f"finite={finite}")
+    if not same_keyframes:
+        raise AssertionError(f"{phase}: the backend's keyframes differ from "
+                             f"the tracker's {n}")
+    if kind != "sync" and cycles_before < 2:
+        raise AssertionError(f"{phase}: the backend ran {cycles_before} "
+                             f"cycles before terminate(), fewer than 2")
+    if replay is not None and not (replay["pose_gap"] <= REPLAY_POSE_TOL
+                                   and replay["edges_equal"]):
+        raise AssertionError(f"{phase}: the backend's poses differ from its "
+                             f"cycles replayed by hand: {replay}")
+    if replay is not None and \
+            not replay["control_no_ba_gap"] > REPLAY_POSE_TOL:
+        raise AssertionError(f"{phase}: a replay with no BA step lands "
+                             f"within {REPLAY_POSE_TOL} too: {replay}")
+    del droid
+    torch.cuda.empty_cache()
+    return traj, {k: c_track[k] + c_term[k] for k in c_track}
+
+
 def main():
     signal.signal(signal.SIGALRM, _deadline)
     signal.alarm(DEADLINE_S)
     faulthandler.dump_traceback_later(DEADLINE_S + 30, exit=True)
     t_start = time.perf_counter()
 
+    # cuBLAS's deterministic mode, which the asynchronous phases take, needs
+    # a fixed workspace before its first handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -693,6 +1029,17 @@ def main():
         torch.cuda.empty_cache()
         c_stereo = run_mode(dev, "stereo")
         c_rgbd = run_mode(dev, "rgbd")
+        # the asynchronous phases run PyTorch's deterministic kernels (sums
+        # without atomics): the backend's cycles amplify the last bit of a
+        # sum without bound on this scene, so that only a replay that
+        # repeats each sum bit for bit can hold a facade to its own cycles
+        torch.use_deterministic_algorithms(True)
+        try:
+            ref, c_async_ref = run_async(dev, "sync")
+            _, c_async = run_async(dev, "thread", ref)
+            _, c_async_proc = run_async(dev, "process", ref)
+        finally:
+            torch.use_deterministic_algorithms(False)
     finally:
         signal.alarm(0)
         faulthandler.cancel_dump_traceback_later()
@@ -700,7 +1047,8 @@ def main():
     # launches over every path; each path's own counts beside them
     paths = {"track": c_default, "track_fused": c_track,
              "terminate": c_term, "track_stereo": c_stereo,
-             "track_rgbd": c_rgbd}
+             "track_rgbd": c_rgbd, "track_async_ref": c_async_ref,
+             "track_async": c_async, "track_async_process": c_async_proc}
     src = "droid_slam_tpu_torch/csrc/"
     meta = {"corr_lookup": ("corr_lookup.cu",
                             "droid_slam_tpu/ops/corr_pallas.py:84",

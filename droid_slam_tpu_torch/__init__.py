@@ -15,6 +15,11 @@ depth map per frame), with optional full-resolution disparities
         droid.track(t, image, depth, intrinsics)
     poses = droid.terminate(stream_of_all_frames)
 
+``slam.make_droid(cfg)`` picks the facade: ``Droid``, or with
+``cfg.asynchronous`` ``DroidAsync`` (the global BA in a thread beside
+tracking) or, with ``DROID_ASYNC_PROCESS=1``, ``DroidAsyncProcess`` (the
+global BA in a process of its own). ``demo_torch.py`` is the command line.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. On
 CUDA tensors the corr-window lookup and the GRU's fused epilogues launch
 the hand-written kernels of ``csrc/``; on CPU tensors their plain PyTorch

@@ -48,6 +48,10 @@ class DroidConfig:
     # ``.pth`` state_dict, or None for a seeded random initialization
     weights: Optional[str] = None
 
+    # the global BA runs beside tracking (slam/async_droid.py, or with
+    # DROID_ASYNC_PROCESS=1 slam/async_process.py); make_droid selects it
+    asynchronous: bool = False
+
 
 # per-dataset tuned defaults: the reference's evaluation scripts' argparse
 # defaults (droid_slam_tpu/config.py:52-85)

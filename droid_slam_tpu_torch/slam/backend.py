@@ -1,11 +1,15 @@
-"""DroidBackend: global bundle adjustment over all keyframes.
+"""Global bundle adjustment over all keyframes.
 
-Counterpart of ``droid_slam_tpu/slam/backend.py::DroidBackend``: normalize
-the scale (mean disparity 1) unless a stereo rig or a depth sensor fixes it,
-build a fresh factor graph with on-the-fly correlation and room for 16 edges
-per keyframe, propose proximity edges over all keyframes, run the chunked
-global BA (``FactorGraph.update_lowmem``, which also upsamples with
-``upsample``), and drop the graph.
+Counterpart of ``droid_slam_tpu/slam/backend.py``. ``DroidBackend``:
+normalize the scale (mean disparity 1) unless a stereo rig or a depth sensor
+fixes it, build a fresh factor graph with on-the-fly correlation and room
+for 16 edges per keyframe, propose proximity edges over all keyframes, run
+the chunked global BA (``FactorGraph.update_lowmem``, which also upsamples
+with ``upsample``), and drop the graph. ``DroidAsyncBackend``, the
+asynchronous facades' backend, keeps one graph with no edge cap across its
+calls: each call proposes proximity edges over the keyframes it has now,
+runs the global BA with the inactive edges too, and retires the edges older
+than ``max_age`` updates to the inactive set.
 """
 
 from __future__ import annotations
@@ -39,4 +43,31 @@ class DroidBackend:
         if edges:
             graph.update_lowmem(steps=steps)
             graph.clear_edges()
+        return edges
+
+
+class DroidAsyncBackend:
+    def __init__(self, params, video, cfg, max_age=7):
+        self.video = video
+        self.max_age = max_age
+        self.beta = cfg.beta
+        self.backend_thresh = cfg.backend_thresh
+        self.backend_radius = cfg.backend_radius
+        self.backend_nms = cfg.backend_nms
+        self.graph = FactorGraph(video, params, max_factors=-1,
+                                 corr_impl="alt", upsample=cfg.upsample)
+
+    def __call__(self, steps=12, normalize=True):
+        """One global-BA pass of ``steps`` steps over the persistent graph;
+        returns its active edge count."""
+        v, g = self.video, self.graph
+        if normalize and not v.stereo and not bool(v.disps_sens.any()):
+            v.normalize()
+        g.add_proximity_factors(rad=self.backend_radius,
+                                nms=self.backend_nms,
+                                thresh=self.backend_thresh, beta=self.beta)
+        edges = len(g.ii)
+        if edges:
+            g.update_lowmem(steps=steps, use_inactive=True)
+            g.rm_factors(g.age > self.max_age, store=True)
         return edges

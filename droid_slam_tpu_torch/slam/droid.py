@@ -1,16 +1,20 @@
 """Droid: the user-facing tracker, for monocular, stereo and RGB-D input.
 
-Counterpart of ``droid_slam_tpu/slam/droid.py`` (``Droid.__init__``,
-``track``, ``flush``, ``terminate``) on the per-call path the JAX package
-takes on the CPU: each arriving frame first resolves the previous frame's
-keyframe and admission decisions, then runs the frontend update, then begins
-this frame's admission test. ``terminate()`` runs the global BA passes and
-the trajectory filler.
+Counterpart of ``droid_slam_tpu/slam/droid.py`` (``TrackPipeline``,
+``Droid.__init__``, ``track``, ``flush``, ``terminate``) on the per-call
+path the JAX package takes on the CPU: each arriving frame first resolves
+the previous frame's keyframe and admission decisions, then runs the
+frontend update, then begins this frame's admission test. ``terminate()``
+runs the global BA passes and the trajectory filler. ``TrackPipeline`` is
+the tracking half, which the asynchronous facades (``slam/async_droid.py``,
+``slam/async_process.py``) share.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 import time
 
 import torch
@@ -24,31 +28,52 @@ from .frontend import DroidFrontend
 from .motion_filter import MotionFilter
 from .trajectory_filler import PoseTrajectoryFiller
 
+_TF32_FLAGS = (torch.backends.cuda.matmul, torch.backends.cudnn)
+_tf32_lock = threading.Lock()
+_tf32_scopes = [0, None]  # open scopes in every thread, the saved flags
+
+
+@contextlib.contextmanager
+def f32_matmuls():
+    """TF32 off for matmuls and cuDNN inside, the caller's settings back
+    when the last scope open in any thread closes: the geometry and BA run
+    in f32, as the JAX package's ``precision="highest"`` einsums do, also
+    while the asynchronous backend's thread runs beside the tracker. The
+    bf16 networks are unaffected."""
+    with _tf32_lock:
+        if _tf32_scopes[0] == 0:
+            _tf32_scopes[1] = [f.allow_tf32 for f in _TF32_FLAGS]
+            for f in _TF32_FLAGS:
+                f.allow_tf32 = False
+        _tf32_scopes[0] += 1
+    try:
+        yield
+    finally:
+        with _tf32_lock:
+            _tf32_scopes[0] -= 1
+            if _tf32_scopes[0] == 0:
+                for f, v in zip(_TF32_FLAGS, _tf32_scopes[1]):
+                    f.allow_tf32 = v
+
 
 def _f32_matmuls(fn):
-    """Run fn with TF32 off for matmuls and cuDNN, then restore the caller's
-    settings: the geometry and BA run in f32, as the JAX package's
-    ``precision="highest"`` einsums do. The bf16 networks are unaffected."""
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        flags = torch.backends.cuda.matmul, torch.backends.cudnn
-        saved = [f.allow_tf32 for f in flags]
-        try:
-            for f in flags:
-                f.allow_tf32 = False
+        with f32_matmuls():
             return fn(*args, **kwargs)
-        finally:
-            for f, v in zip(flags, saved):
-                f.allow_tf32 = v
     return wrapped
 
 
-class Droid:
+class TrackPipeline:
+    """The tracking half of every facade: weights, the keyframe video, the
+    motion filter and the frontend, and ``track`` / ``flush``."""
+
     def __init__(self, config: DroidConfig, device="cuda"):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Droid: CUDA is not available; pass "
-                               "device='cpu' to run on the CPU")
+            raise RuntimeError(f"{type(self).__name__}: CUDA is not "
+                               "available; pass device='cpu' to run on the "
+                               "CPU")
         self.config = config
         self.device = device
         self.params = weights_io.load(config.weights, device)
@@ -58,11 +83,6 @@ class Droid:
         self.filterx = MotionFilter(self.params, self.video,
                                     thresh=config.filter_thresh)
         self.frontend = DroidFrontend(self.params, self.video, config)
-        self.backend = DroidBackend(self.params, self.video, config)
-        self.traj_filler = PoseTrajectoryFiller(
-            self.params, self.video,
-            fused_epilogue=config.gru_fused_epilogue)
-        self.terminate_stats = None
 
     @torch.no_grad()
     @_f32_matmuls
@@ -90,6 +110,16 @@ class Droid:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+class Droid(TrackPipeline):
+    def __init__(self, config: DroidConfig, device="cuda"):
+        super().__init__(config, device)
+        self.backend = DroidBackend(self.params, self.video, config)
+        self.traj_filler = PoseTrajectoryFiller(
+            self.params, self.video,
+            fused_epilogue=config.gru_fused_epilogue)
+        self.terminate_stats = None
 
     @torch.no_grad()
     @_f32_matmuls

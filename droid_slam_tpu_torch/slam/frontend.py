@@ -77,8 +77,9 @@ class DroidFrontend:
             return
         d, self._pending_kf = self._pending_kf, None
         if d < 2 * self.keyframe_thresh:
-            self.graph.rm_keyframe(self.t1 - 3)
-            self.video.counter -= 1
+            with self.video.get_lock():
+                self.graph.rm_keyframe(self.t1 - 3)
+                self.video.counter -= 1
             self.t1 -= 1
             self._init_next_state()
 
@@ -91,6 +92,7 @@ class DroidFrontend:
                                 thresh=self.frontend_thresh, remove=False)
         g.update(1, use_inactive=True, n_iters=8)
         self.is_initialized = True
+        self.video.ready = True
         g.rm_factors(g.ii < self.warmup - 4, store=True)
 
     def __call__(self):

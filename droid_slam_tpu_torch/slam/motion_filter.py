@@ -76,19 +76,20 @@ class MotionFilter:
             self.video.append(tstamp, pose=se3.identity(device=fmap.device),
                               disp=1.0, depth=depth,
                               intrinsics=np.asarray(intrinsics) / 8.0,
-                              fmap=fmap, net=net, inp=inp)
+                              fmap=fmap, net=net, inp=inp, image=image[0])
             return
-        self._pending = (tstamp, depth, intrinsics, fmap, net, inp,
+        self._pending = (tstamp, image[0], depth, intrinsics, fmap, net, inp,
                          self._delta(fmap))
 
     def track_finish(self):
         """Resolve the pending test; append the frame when admitted."""
         if self._pending is None:
             return
-        tstamp, depth, intrinsics, fmap, net, inp, delta = self._pending
+        tstamp, image, depth, intrinsics, fmap, net, inp, delta = \
+            self._pending
         self._pending = None
         if float(delta) > self.thresh:
             self.fmap, self.net, self.inp = fmap, net, inp
             self.video.append(tstamp, depth=depth,
                               intrinsics=np.asarray(intrinsics) / 8.0,
-                              fmap=fmap, net=net, inp=inp)
+                              fmap=fmap, net=net, inp=inp, image=image)

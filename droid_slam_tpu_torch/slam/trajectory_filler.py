@@ -67,7 +67,9 @@ class PoseTrajectoryFiller:
         graph.add_factors(t0, np.arange(N, N + M))
         graph.add_factors(t1, np.arange(N, N + M))
         graph.update(N, N + M, motion_only=True, n_iters=6)
-        out = v.poses[N:N + M].cpu().numpy()
+        # a copy: on the CPU .numpy() would alias the buffer that the next
+        # batch writes
+        out = v.poses[N:N + M].cpu().numpy().copy()
         v.counter = N
         return out
 

@@ -259,11 +259,13 @@ class FactorGraph:
     # global BA (resident)
     # ------------------------------------------------------------------
 
-    def update_lowmem(self, steps=8, itrs=2):
+    def update_lowmem(self, steps=8, itrs=2, use_inactive=False):
         """Global BA over all keyframes: ``steps`` x (a sweep of the update
         operator over chunks of 8 source frames with on-the-fly correlation,
         then ``itrs`` dense BA iterations over every edge with free poses
-        [1, t)). Counterpart of the resident path of
+        [1, t)); ``use_inactive`` adds every stored inactive edge to the BA,
+        ahead of the active ones (the asynchronous backend's persistent
+        graph). Counterpart of the resident path of
         ``droid_slam_tpu/state/graph.py::update_lowmem``; the chunking bounds
         the correlation's working set. The chunk's update operator takes the
         full 320-channel context path (no precompute, no fused epilogue).
@@ -281,12 +283,16 @@ class FactorGraph:
         chunks = [(s, np.flatnonzero((ii >= s) & (ii < s + 8)))
                   for s in starts]
         chunks = [(s, idx) for s, idx in chunks if len(idx)]
-        plan = ba_inference.build_plan(ii, jj, 1, t, v.device)
+        n_inac = len(self.ii_inac) if use_inactive else 0
+        plan = ba_inference.build_plan(
+            np.concatenate([self.ii_inac[:n_inac], ii]),
+            np.concatenate([self.jj_inac[:n_inac], jj]), 1, t, v.device)
         for _ in range(steps):
             for s, idx in chunks:
                 self._lowmem_chunk(fpyr, rows, s, idx)
-            v.ba(self.target, self.weight, plan, iters=itrs, lm=1e-5,
-                 ep=1e-2)
+            v.ba(torch.cat([self.target_inac[:n_inac], self.target]),
+                 torch.cat([self.weight_inac[:n_inac], self.weight]), plan,
+                 iters=itrs, lm=1e-5, ep=1e-2)
             self.age += 1
         v.dirty[:t] = True
 

@@ -9,9 +9,16 @@ in stereo, else 1):
   intrinsics [B,4] (at 1/8 scale)   damping [B,h,w]
   fmaps [B,c,128,h,w]   nets/inps [B,128,h,w]   bf16, NCHW (PyTorch's
   convolution layout)
+  images: the keyframes' (left) images, host-side, for export
+
+Writers hold the video's lock (``get_lock()``, reentrant), so that the
+asynchronous backend can copy a consistent slice of it (``read_frames``)
+while the tracker runs.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -52,11 +59,21 @@ class DepthVideo:
                                  device=dev)
         self.nets = torch.zeros((buffer, 128, h, w), dtype=bf16, device=dev)
         self.inps = torch.zeros((buffer, 128, h, w), dtype=bf16, device=dev)
+        self.images = [None] * buffer
         self.counter = 0
+        self.ready = False  # set once the tracker is initialized
         self.dirty = np.zeros(buffer, bool)  # frames changed since last read
+        self._lock = threading.RLock()
 
     _FIELDS = ("tstamp", "poses", "disps", "disps_sens", "disps_up",
                "intrinsics", "damping", "fmaps", "nets", "inps")
+    # the per-frame fields the asynchronous backend copies
+    # (droid_slam_tpu/slam/async_droid.py:87-119)
+    FRAME_FIELDS = ("tstamp", "poses", "disps", "disps_sens", "intrinsics",
+                    "fmaps", "nets", "inps")
+
+    def get_lock(self):
+        return self._lock
 
     def append(self, tstamp, **fields):
         """Write the next keyframe; fields left None keep their values
@@ -64,48 +81,77 @@ class DepthVideo:
         self.set_frame(self.counter, tstamp, **fields)
 
     def set_frame(self, ix, tstamp, pose=None, disp=None, depth=None,
-                  intrinsics=None, fmap=None, net=None, inp=None):
+                  intrinsics=None, fmap=None, net=None, inp=None,
+                  image=None):
         """Write frame ix (the counter grows to cover it); fields left None
         keep their values. ``depth`` is a full-resolution depth map [H,W]
         (``sensor_disparity``); ``fmap`` is [c,128,h,w], or one view
-        [128,h,w] written to every view."""
+        [128,h,w] written to every view; ``image`` is kept host-side."""
         if ix >= self.buffer:
             raise RuntimeError(
                 f"DepthVideo buffer full: keyframe index {ix} >= buffer "
                 f"{self.buffer}; raise the buffer or filter_thresh")
-        self.tstamp[ix] = float(tstamp)
-        if pose is not None:
-            self.poses[ix] = pose
-        if disp is not None:
-            self.disps[ix] = disp
-        if depth is not None:
-            self.disps_sens[ix] = torch.as_tensor(sensor_disparity(depth),
-                                                  device=self.device)
-        if intrinsics is not None:
-            self.intrinsics[ix] = torch.as_tensor(
-                np.asarray(intrinsics, np.float32), device=self.device)
-        for buf, val in ((self.fmaps, fmap), (self.nets, net),
-                         (self.inps, inp)):
-            if val is not None:
-                buf[ix] = val
-        self.counter = max(self.counter, ix + 1)
-        self.dirty[ix] = True
+        with self._lock:
+            if image is not None:
+                self.images[ix] = image
+            self.tstamp[ix] = float(tstamp)
+            if pose is not None:
+                self.poses[ix] = pose
+            if disp is not None:
+                self.disps[ix] = disp
+            if depth is not None:
+                self.disps_sens[ix] = torch.as_tensor(sensor_disparity(depth),
+                                                      device=self.device)
+            if intrinsics is not None:
+                self.intrinsics[ix] = torch.as_tensor(
+                    np.asarray(intrinsics, np.float32), device=self.device)
+            for buf, val in ((self.fmaps, fmap), (self.nets, net),
+                             (self.inps, inp)):
+                if val is not None:
+                    buf[ix] = val
+            self.counter = max(self.counter, ix + 1)
+            self.dirty[ix] = True
 
     def rm_keyframe(self, ix: int):
         """Remove keyframe ix: shift [ix+1, counter) down one slot."""
-        t = self.counter
-        for name in self._FIELDS:
-            buf = getattr(self, name)
-            if buf is not None:
-                buf[ix:t - 1] = buf[ix + 1:t].clone()
+        with self._lock:
+            t = self.counter
+            for name in self._FIELDS:
+                buf = getattr(self, name)
+                if buf is not None:
+                    buf[ix:t - 1] = buf[ix + 1:t].clone()
+            self.images[ix:t - 1] = self.images[ix + 1:t]
 
     def normalize(self):
         """Rescale the keyframes' mean disparity to 1 (monocular scale)."""
-        t = self.counter
-        s = self.disps[:t].mean()
-        self.disps[:t] /= s
-        self.poses[:t, :3] *= s
-        self.dirty[:t] = True
+        with self._lock:
+            t = self.counter
+            s = self.disps[:t].mean()
+            self.disps[:t] /= s
+            self.poses[:t, :3] *= s
+            self.dirty[:t] = True
+
+    def read_frames(self, t0, t1):
+        """Copies of frames [t0, t1) of ``FRAME_FIELDS``, and their images,
+        under the lock; a caller that reads the counter or other fields
+        with them holds the lock across all of it."""
+        with self._lock:
+            out = {name: getattr(self, name)[t0:t1].clone()
+                   for name in self.FRAME_FIELDS}
+            out["images"] = list(self.images[t0:t1])
+        return out
+
+    def write_frames(self, t0, frames):
+        """Write ``frames`` (as ``read_frames`` returns them, images
+        optional) at [t0, t0+n); the counter becomes t0+n."""
+        t1 = t0 + len(frames["tstamp"])
+        with self._lock:
+            for name in self.FRAME_FIELDS:
+                getattr(self, name)[t0:t1] = frames[name]
+            if "images" in frames:
+                self.images[t0:t1] = frames["images"]
+            self.counter = t1
+            self.dirty[t0:t1] = True
 
     def reproject(self, ii, jj):
         """Pixels of frames ii warped into frames jj: (coords [E,h,w,2],
@@ -128,7 +174,9 @@ class DepthVideo:
            motion_only=False):
         """Dense BA over the plan's edges (target/weight [E,2,HW]), with the
         sensor disparities as a prior where they are set."""
-        self.poses, self.disps = ba_inf.ba_iterations(
+        poses, disps = ba_inf.ba_iterations(
             self.poses, self.disps, self.disps_sens, self.damping,
             self.intrinsics[0], target, weight, plan, lm=lm, ep=ep,
             iters=iters, motion_only=motion_only)
+        with self._lock:
+            self.poses, self.disps = poses, disps

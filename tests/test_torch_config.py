@@ -21,8 +21,8 @@ from droid_slam_tpu_torch.models import weights as tweights
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "r5_006000.npz")
 # JAX fields of modes the port does not run: edge-parallel frontend,
-# visualization, the asynchronous pipelines, the demo CLI's stream options
-JAX_ONLY = {"edge_parallel", "enable_vis", "asynchronous", "t0", "stride",
+# visualization, the demo CLI's stream options
+JAX_ONLY = {"edge_parallel", "enable_vis", "t0", "stride",
             "reconstruction_path"}
 PORT_ONLY = {"gru_fused_epilogue"}
 

@@ -1,6 +1,6 @@
-"""The port stands alone: importing any of its modules (or chip_smoke.py)
-pulls in neither JAX nor the JAX package, and its entry point defaults to
-the GPU."""
+"""The port stands alone: importing any of its modules (or chip_smoke.py,
+or demo_torch.py) pulls in neither JAX nor the JAX package, and its entry
+points default to the GPU."""
 
 import inspect
 import os
@@ -25,13 +25,15 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("ops.corr_cuda", "ops.gru", "ops.gru_cuda", "slam.backend",
-              "slam.trajectory_filler"):
+              "slam.trajectory_filler", "slam.align", "slam.async_droid",
+              "slam.async_process", "eval.ate"):
         assert "droid_slam_tpu_torch." + m in mods
     code = (
         "import importlib, sys, runpy\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "runpy.run_path('demo_torch.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'droid_slam_tpu' or m.startswith('droid_slam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -52,6 +54,36 @@ def test_droid_defaults_to_cuda_and_refuses_without_it():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Droid(DroidConfig(image_size=(64, 96), buffer=8))
+
+
+@pytest.mark.parametrize("process", [False, True], ids=["thread", "process"])
+def test_make_droid_picks_the_async_facade_on_cuda_by_default(
+        process, monkeypatch):
+    """make_droid(asynchronous=True) gives DroidAsync, or DroidAsyncProcess
+    under DROID_ASYNC_PROCESS=1; both default to the card and refuse to run
+    without one (before they start a thread or a process)."""
+    from droid_slam_tpu_torch.config import DroidConfig
+    from droid_slam_tpu_torch.slam import make_droid
+    from droid_slam_tpu_torch.slam.async_droid import DroidAsync
+    from droid_slam_tpu_torch.slam.async_process import DroidAsyncProcess
+    from droid_slam_tpu_torch.slam.droid import Droid
+
+    cls = DroidAsyncProcess if process else DroidAsync
+    monkeypatch.setenv("DROID_ASYNC_PROCESS", "1" if process else "0")
+    default = inspect.signature(cls.__init__).parameters["device"].default
+    assert default == "cuda"
+    built = []
+    for c in (Droid, DroidAsync, DroidAsyncProcess):
+        monkeypatch.setattr(c, "__init__",
+                            lambda self, cfg, **kw: built.append(
+                                (type(self), kw)))
+    make_droid(DroidConfig(asynchronous=True), sleep_time=1.0)
+    make_droid(DroidConfig())
+    assert built == [(cls, {"sleep_time": 1.0}), (Droid, {})]
+    monkeypatch.undo()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(DroidConfig(image_size=(64, 96), buffer=8))
 
 
 def test_droid_scopes_tf32_off_to_its_calls(monkeypatch):
@@ -124,3 +156,37 @@ def test_track_takes_depth_third_as_jax_does():
     (k1, p1, d1), (k2, p2, d2) = runs
     assert k1 == k2 == 5
     assert torch.equal(p1, p2) and torch.equal(d1, d2)
+
+
+def test_f32_scopes_hold_across_threads(monkeypatch):
+    """Threads entering and leaving ``f32_matmuls`` at once (the tracker and
+    the asynchronous backend's thread): TF32 stays off inside every open
+    scope, and the caller's settings come back when the last one closes."""
+    import sys
+    import threading
+
+    from droid_slam_tpu_torch.slam.droid import f32_matmuls
+
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    for f in flags:
+        monkeypatch.setattr(f, "allow_tf32", True)
+    bad, interval = [], sys.getswitchinterval()
+
+    def work():
+        for _ in range(300):
+            with f32_matmuls():
+                if any(f.allow_tf32 for f in flags):
+                    bad.append(1)
+
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
+    assert [f.allow_tf32 for f in flags] == [True, True]

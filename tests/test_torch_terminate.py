@@ -418,6 +418,26 @@ def test_filler_splits_a_batch_to_the_free_slots(runs, monkeypatch):
     np.testing.assert_allclose(got, want, atol=1e-6)
 
 
+def test_filler_batches_keep_their_own_poses(runs):
+    """A stream longer than one batch of 16: each batch's poses are its
+    own. On the CPU ``.numpy()`` of the video's pose rows aliases them, and
+    the next batch's temporary frames, written to the same rows, overwrote
+    the first batch's result."""
+    from droid_slam_tpu_torch.models import weights as tweights
+    from droid_slam_tpu_torch.slam.trajectory_filler import (
+        PoseTrajectoryFiller as TFiller)
+
+    snap = runs["jax"]["snap"]
+    n = snap["counter"]
+    params = tweights.load(CKPT, "cpu")
+    items = list(_filler_stream(_frames())) * 3     # 21 frames: 16 + 5
+    got = TFiller(params, _torch_video(snap, buffer=n + 16))(iter(items))
+    alone = [TFiller(params, _torch_video(snap, buffer=n + 16))._fill(
+        *zip(*items[a:b])) for a, b in ((0, 16), (16, len(items)))]
+    assert got.shape == (len(items), 7)
+    np.testing.assert_allclose(got, np.concatenate(alone), atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
