@@ -38,6 +38,21 @@ with the trained weights:
                 replay with no BA step must not; its ATE to the
                 reference's trajectory is printed. These phases run
                 PyTorch's deterministic kernels.
+  train         train_torch.py's Run at its published configuration
+                (TRAIN_ARGV: synthetic clips at 384x512, 7 frames, 24
+                edges, 15 iterations, batch 4, bf16, restarts at 0.2) from
+                the trained weights: one warm-up step, N_TRAIN_TIMED timed
+                steps, one profiled step (device-busy share, top ops);
+                every loss and metric finite, no non-finite gradient,
+                every parameter moved and finite; the .npz read back bit
+                for bit; the state saved, resumed and stepped once equal
+                to one uninterrupted step (restart_prob 0, deterministic
+                kernels, one sample through RESUME_ITERS iterations);
+  train_parity  sample_loss and its gradient on the card against the CPU
+                port on the same inputs (PARITY_*, f32, TF32 off), to the
+                JAX package's own bounds (PARITY_TOL).
+The training phases launch none of the three kernels, as JAX's training
+forward runs none of its Pallas kernels; they print that.
 
 The two input modes see one scene: a right view shifted by STEREO_SHIFT px
 (whole feature pixels) and the depth of the fronto-parallel plane that shift
@@ -60,7 +75,8 @@ print one JSON line each; then the kernel table, the card's name and power
 limit, and a last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line. The run has a hard deadline. It imports neither
 JAX nor the JAX package, and writes nothing but the kernel build under
-droid_slam_tpu_torch/build/.
+droid_slam_tpu_torch/build/ and the training phase's temporary files, which
+it removes.
 """
 
 import faulthandler
@@ -109,9 +125,43 @@ REPLAY_POSE_TOL = 1e-5
 # stereo baseline determines: the tracked median disparity must land within
 # this factor of it
 PLANE_DISP_TOL = 1.25
+# the training phase: train_torch.py at its published configuration (the
+# synthetic box clips at train.py's default 384x512, 7 frames, --edges 24,
+# 15 iterations, batch 4, bf16, restarts at 0.2) from the trained weights
+TRAIN_ARGV = ["--datasets", "synthetic", "--ckpt", CKPT, "--device", "cuda",
+              "--image_size", "384", "512", "--n_frames", "7", "--edges",
+              "24", "--iters", "15", "--batch", "4", "--restart_prob", "0.2",
+              "--synthetic_clips", "4"]
+N_TRAIN_TIMED = 3
+# the save-and-resume check, with deterministic kernels, steps one sample
+# of the batch through RESUME_ITERS iterations; the ops of one sample
+# through ATTR_ITERS iterations are attributed by aten op
+RESUME_ITERS = ATTR_ITERS = 2
+# sample_loss on the card against the CPU port, at the scene of
+# tests/test_torch_train_loss.py (N=4 at 48x64, 2 iterations, f32, TF32
+# off); the bounds of the JAX package's scan-against-unrolled test
+PARITY_N, PARITY_SIZE, PARITY_SEED, PARITY_ITERS = 4, (48, 64), 5, 2
+PARITY_TOL = {"loss_rel": 2e-4, "grad_rel": 1e-2}
+# the three kernels' TPU originals are inference-only: JAX's training
+# forward reaches none of them (droid_slam_tpu/ops/gru_pallas.py:27-28,
+# droid_slam_tpu/models/nets.py:166-167,185; its lookup is
+# droid_slam_tpu/ops/corr.py:459-472), and the port's runs their plain
+# versions under autograd
+TRAIN_KERNEL_NOTE = ("0 launches by design: the training forward runs the "
+                     "plain lookup and GRU under autograd, as JAX's runs "
+                     "none of its Pallas kernels (droid_slam_tpu/ops/"
+                     "gru_pallas.py:27-28, droid_slam_tpu/ops/corr.py:"
+                     "459-472)")
+
+
+_T0 = time.perf_counter()
 
 
 def emit(**kw):
+    """One JSON line; a phase's line carries the seconds since the script
+    started (``t_s``), so each phase's share of the run can be read."""
+    if "phase" in kw:
+        kw["t_s"] = round(time.perf_counter() - _T0, 3)
     print(json.dumps(kw), flush=True)
 
 
@@ -464,7 +514,6 @@ def profile_frames(fn, frame_ms):
     of the un-profiled frame time ``frame_ms`` (the profiler slows the host,
     not the kernels), the lookup kernel's part and the five largest."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -472,10 +521,7 @@ def profile_frames(fn, frame_ms):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CPU:   # kernels and copies on the card
-            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    dev = _device_ms(prof)[0]
     per_frame = sum(dev.values()) / N_PROF
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
     part = lambda key: sum(v for k, v in dev.items() if key in k) / N_PROF
@@ -987,6 +1033,256 @@ def run_async(dev, kind, ref_traj=None):
     return traj, {k: c_track[k] + c_term[k] for k in c_track}
 
 
+def _train_module():
+    import runpy
+    return runpy.run_path(os.path.join(ROOT, "train_torch.py"),
+                          run_name="chip_smoke")
+
+
+def _device_ms(prof):
+    """({kernel or copy name: device ms}, {aten op: device ms of the kernels
+    it launched itself}, {aten op: host ms of its own}) of a torch.profiler
+    run."""
+    from torch.autograd import DeviceType
+    dev, by_op, host = {}, {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU:
+            dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total / 1e3
+        elif e.key.startswith("aten::"):
+            by_op[e.key] = e.self_device_time_total / 1e3
+            host[e.key] = e.self_cpu_time_total / 1e3
+    return dev, by_op, host
+
+
+def _kernel_ms(prof):
+    """{kernel or copy name: device ms} of a torch.profiler run, summed
+    from its raw events: the per-op summary (``key_averages``) of a whole
+    training step's trace takes minutes to build."""
+    from torch.autograd import DeviceType
+    try:
+        events = prof.profiler.kineto_results.events()
+        dev = {}
+        for e in events:
+            if e.device_type() != DeviceType.CPU:
+                dev[e.name()] = dev.get(e.name(), 0.0) + e.duration_ns() / 1e6
+        return dev
+    except AttributeError:      # a PyTorch without these raw accessors
+        return _device_ms(prof)[0]
+
+
+def _top(d, n):
+    return [[k[:60], round(v, 3)] for k, v in
+            sorted(d.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def _attribute_ops(run, batch):
+    """Device and host ms by aten op of one sample's sample_loss and
+    backward through ATTR_ITERS iterations at the run's configuration
+    (torch.profiler with the host's ops): the step's ops in small. The
+    gradients are dropped; the optimizer does not step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from droid_slam_tpu_torch.slam.droid import f32_matmuls
+    from droid_slam_tpu_torch.train import trainer
+
+    b = {k: v if k in ("ii", "jj") else v[0] for k, v in batch.items()}
+    g0, d0 = trainer.default_init(b["poses"], b["disps"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, f32_matmuls():
+        loss, _ = trainer.sample_loss(run.params, b["images"], b["poses"],
+                                      b["disps"], b["intrinsics"], g0, d0,
+                                      b["ii"], b["jj"], run.cfg, ATTR_ITERS)
+        loss.backward()
+        torch.cuda.synchronize()
+    for p in run.params.values():
+        p.grad = None
+    dev_ms, op_dev_ms, op_host_ms = _device_ms(prof)
+    return op_dev_ms, op_host_ms, sum(dev_ms.values())
+
+
+def run_train(dev):
+    """train_torch.py's Run at TRAIN_ARGV: one warm-up step, N_TRAIN_TIMED
+    timed steps, one profiled step; then its .npz read back, and its state
+    saved, resumed and stepped once against one uninterrupted step
+    (restart_prob 0, deterministic kernels), which must agree exactly."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from droid_slam_tpu_torch.models import weights as weights_io
+
+    mod = _train_module()
+    parser = mod["build_parser"]()
+    tic = time.perf_counter()
+    run = mod["Run"](parser.parse_args(TRAIN_ARGV))
+    batches = [run.next_batch() for _ in range(N_TRAIN_TIMED + 2)]
+    prep_s = time.perf_counter() - tic
+    start = {k: v.detach().clone() for k, v in run.params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+
+    def step(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = run.step(batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, m
+
+    warm_s, warm_m = step(batches[0])
+    timed = [step(b) for b in batches[1:1 + N_TRAIN_TIMED]]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the whole step's kernels only: with the host's ops too, its trace
+    # holds millions of events
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof_s, prof_m = step(batches[-1])
+    t0 = time.perf_counter()
+    dev_ms = _kernel_ms(prof)
+    summary_s = time.perf_counter() - t0
+    op_dev_ms, op_host_ms, attr_ms = _attribute_ops(run, batches[-1])
+    counts = _counts()
+    runs = [1 + m["restarts"] for _, m in timed]
+    s_per_run = sum(t for t, _ in timed) / sum(runs)
+    prof_runs = 1 + prof_m["restarts"]
+    busy_ms = sum(dev_ms.values())
+    metrics = [m for _, m in [(warm_s, warm_m)] + timed + [(prof_s, prof_m)]]
+    finite_metrics = all(np.isfinite(v) for m in metrics for v in m.values())
+    nanfrac = max(m["grad_nanfrac"] for m in metrics)
+    unchanged = [k for k, v in run.params.items()
+                 if torch.equal(v.detach(), start[k])]
+    nonfinite = [k for k, v in run.params.items()
+                 if not bool(torch.isfinite(v).all())]
+    s_step = [t for t, _ in timed]
+    B = int(batches[0]["images"].shape[0])
+    iters = run.cfg.iters
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "weights.npz")
+        run.save_npz(npz)
+        ref = weights_io.to_jax_params(run.params)
+        with np.load(npz) as d:
+            npz_exact = (set(d.files) == set(ref) and all(
+                np.array_equal(d[k], ref[k]) for k in ref))
+        state = os.path.join(tmp, "state.pt")
+        one = {k: v if k in ("ii", "jj") else v[:1]
+               for k, v in batches[1].items()}
+        run.cfg.restart_prob, run.cfg.iters = 0.0, RESUME_ITERS
+        torch.use_deterministic_algorithms(True)
+        try:
+            run.save_state(state)
+            t0 = time.perf_counter()
+            run.step(one)
+            resume_step_s = time.perf_counter() - t0
+            resumed = mod["Run"](parser.parse_args(
+                TRAIN_ARGV + ["--restart_prob", "0", "--iters",
+                              str(RESUME_ITERS), "--resume", state]))
+            resumed.step(one)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        resume_gap = max(float((run.params[k] - resumed.params[k]).detach()
+                               .abs().max()) for k in run.params)
+        resume_exact = (resumed.total_steps == run.total_steps and all(
+            torch.equal(run.params[k], resumed.params[k])
+            for k in run.params))
+    del run, resumed
+    torch.cuda.empty_cache()
+
+    emit(phase="train", image_size=[int(x) for x in
+                                    batches[0]["images"].shape[2:4]],
+         frames=int(batches[0]["images"].shape[1]), batch=B,
+         edges=[int(b["ii"].numel()) for b in batches], iters=iters,
+         compute="bf16", prep_s=prep_s, warmup_s=warm_s, s_per_step=s_step,
+         restarts=[m["restarts"] for _, m in timed],
+         samples_per_s=B * len(s_step) / sum(s_step),
+         s_per_unroll=s_per_run, unroll_samples_per_s=B / s_per_run,
+         loss=[m["loss"] for m in metrics],
+         metrics=[{k: v for k, v in m.items() if k != "loss"}
+                  for m in metrics],
+         grad_nanfrac=nanfrac, peak_mem_gb=peak,
+         profile={"step_s": prof_s, "unrolls": prof_runs,
+                  "device_ms": busy_ms,
+                  "busy_share": busy_ms / 1e3 / prof_runs / s_per_run,
+                  "busy_share_profiled_step": busy_ms / 1e3 / prof_s,
+                  "top_ms": _top(dev_ms, 5), "summary_s": summary_s,
+                  "attributed": {"batch": 1, "iters": ATTR_ITERS,
+                                 "device_ms": attr_ms,
+                                 "top_ops_device_ms": _top(op_dev_ms, 8),
+                                 "top_ops_host_ms": _top(op_host_ms, 8),
+                                 "ops_host_ms": sum(op_host_ms.values())}},
+         launches=counts, launches_note=TRAIN_KERNEL_NOTE,
+         params_unchanged=unchanged, params_nonfinite=nonfinite,
+         npz_read_back_exact=npz_exact, resume_exact=resume_exact,
+         resume_max_gap=resume_gap, resume_step_s=resume_step_s,
+         resume_step={"batch": 1, "iters": RESUME_ITERS,
+                      "deterministic": True})
+    if not finite_metrics or nanfrac != 0.0:
+        raise AssertionError(f"train: non-finite metrics or grad_nanfrac "
+                             f"{nanfrac}")
+    if unchanged or nonfinite:
+        raise AssertionError(f"train: parameters unchanged {unchanged} or "
+                             f"non-finite {nonfinite}")
+    if not npz_exact or not resume_exact:
+        raise AssertionError(f"train: npz read back exact {npz_exact}, "
+                             f"resumed step exact {resume_exact} (gap "
+                             f"{resume_gap})")
+    return counts
+
+
+def run_train_parity(dev):
+    """sample_loss and its gradient on the card against the CPU port on the
+    same inputs (PARITY_*), in f32 with TF32 off."""
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.data.synthetic import SyntheticBox
+    from droid_slam_tpu_torch.lie import se3
+    from droid_slam_tpu_torch.models import weights as weights_io
+    from droid_slam_tpu_torch.slam.droid import f32_matmuls
+    from droid_slam_tpu_torch.train import trainer
+
+    N, (h, w) = PARITY_N, PARITY_SIZE
+    images, poses, disps, intr = SyntheticBox(
+        n_clips=1, n_frames=N, image_size=(h, w), seed=PARITY_SEED)[0]
+    pairs = [(a, b) for a in range(N) for b in range(N)
+             if a != b and abs(a - b) <= 2]
+    inputs = [torch.from_numpy(images.astype(np.uint8)),
+              se3.inv(torch.from_numpy(poses)), torch.from_numpy(disps),
+              torch.from_numpy(intr)]
+    ii = torch.tensor([a for a, _ in pairs])
+    jj = torch.tensor([b for _, b in pairs])
+    cfg = trainer.TrainConfig(n_frames=N)
+    _reset_counts()
+    out = []
+    for d in ("cpu", dev):
+        params = {k: v.to(d).requires_grad_(True)
+                  for k, v in weights_io.load_npz(CKPT).items()}
+        x = [t.to(d) for t in inputs]
+        g0, d0 = trainer.default_init(x[1], x[2])
+        t0 = time.perf_counter()
+        with f32_matmuls():
+            loss, _ = trainer.sample_loss(params, *x, g0, d0, ii.to(d),
+                                          jj.to(d), cfg, PARITY_ITERS,
+                                          compute_dtype=torch.float32)
+            loss.backward()
+        flat = np.concatenate([params[k].grad.double().cpu().numpy().ravel()
+                               for k in sorted(params)])
+        out.append((float(loss.detach()), flat, time.perf_counter() - t0))
+    counts = _counts()
+    (lc, gc, tc), (lg, gg, tg) = out
+    loss_rel = abs(lg - lc) / abs(lc)
+    grad_rel = float(np.linalg.norm(gg - gc) / np.linalg.norm(gc))
+    emit(phase="train_parity", frames=N, image_size=[h, w],
+         iters=PARITY_ITERS, edges=len(pairs), seed=PARITY_SEED,
+         loss_cpu=lc, loss_cuda=lg, loss_rel=loss_rel, grad_rel=grad_rel,
+         tol=PARITY_TOL, cpu_s=tc, cuda_s=tg, launches=counts,
+         launches_note=TRAIN_KERNEL_NOTE)
+    if not (loss_rel < PARITY_TOL["loss_rel"]
+            and grad_rel < PARITY_TOL["grad_rel"]):
+        raise AssertionError(f"train_parity: loss {loss_rel}, gradient "
+                             f"{grad_rel} against {PARITY_TOL}")
+    return counts
+
+
 def main():
     signal.signal(signal.SIGALRM, _deadline)
     signal.alarm(DEADLINE_S)
@@ -1040,6 +1336,8 @@ def main():
             _, c_async_proc = run_async(dev, "process", ref)
         finally:
             torch.use_deterministic_algorithms(False)
+        c_train = run_train(dev)
+        c_parity = run_train_parity(dev)
     finally:
         signal.alarm(0)
         faulthandler.cancel_dump_traceback_later()
@@ -1048,7 +1346,8 @@ def main():
     paths = {"track": c_default, "track_fused": c_track,
              "terminate": c_term, "track_stereo": c_stereo,
              "track_rgbd": c_rgbd, "track_async_ref": c_async_ref,
-             "track_async": c_async, "track_async_process": c_async_proc}
+             "track_async": c_async, "track_async_process": c_async_proc,
+             "train": c_train, "train_parity": c_parity}
     src = "droid_slam_tpu_torch/csrc/"
     meta = {"corr_lookup": ("corr_lookup.cu",
                             "droid_slam_tpu/ops/corr_pallas.py:84",

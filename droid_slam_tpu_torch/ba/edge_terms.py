@@ -30,10 +30,13 @@ class EdgeTerms(NamedTuple):
 
 
 def linearize(poses, disps, intrinsics, target, weight, ii, jj,
-              min_depth=pops.MIN_DEPTH_BA) -> EdgeTerms:
+              min_depth=pops.MIN_DEPTH_BA, edge_valid=None,
+              zero_stereo_pose=True) -> EdgeTerms:
     """Linearize the reprojection residuals of every edge; target/weight
     [E,2,HW]. Weights are scaled by 0.001 and zeroed where either point is
-    behind ``min_depth``; stereo edges get zero pose weights
+    behind ``min_depth`` and on the edges that ``edge_valid`` [E] (bool)
+    marks as padding; stereo edges get zero pose weights unless
+    ``zero_stereo_pose`` is False, as in the training BA
     (droid_slam_tpu/ba/edge_terms.py:87-96)."""
     E = ii.shape[0]
     hw = disps.shape[-2] * disps.shape[-1]
@@ -43,7 +46,10 @@ def linearize(poses, disps, intrinsics, target, weight, ii, jj,
     Adj = se3.adj_matrix(pops.relative_poses(poses, ii, jj))
     r = target - coords.reshape(E, hw, 2).transpose(1, 2)
     w = 0.001 * weight * valid.reshape(E, 1, hw)
-    w_pose = w * (1.0 - (ii == jj).to(w.dtype))[:, None, None]
+    if edge_valid is not None:
+        w = w * edge_valid.to(w.dtype)[:, None, None]
+    w_pose = (w * (1.0 - (ii == jj).to(w.dtype))[:, None, None]
+              if zero_stereo_pose else w)
     Jj = Jj.reshape(E, hw, 2, 6).permute(0, 2, 3, 1)
     Jz = Jz.reshape(E, hw, 2).transpose(1, 2)
     return EdgeTerms(r=r, w_pose=w_pose, w_depth=w, Jj=Jj, Jz=Jz, Adj=Adj)

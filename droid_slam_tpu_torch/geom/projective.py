@@ -104,3 +104,34 @@ def projective_transform(poses, disps, intrinsics, ii, jj, jacobian=False,
     Jz_v = fy * (tij[..., 1] * d - tij[..., 2] * y * d2)
     Jz = torch.stack([Jz_u, Jz_v], dim=-1)[..., None]
     return coords, valid, (Ji, Jj, Jz)
+
+
+def projmap(poses, disps, intrinsics, ii, jj):
+    """Reprojection coordinate maps and validity per edge
+    (droid_slam_tpu/geom/projective.py:166-193): Gij = poses[jj] *
+    poses[ii]^-1 with no stereo override, the identity pixel grid where the
+    transformed z <= 0.01, the division by the true z, and valid where
+    z > MIN_DEPTH_BA. Returns (coords [E,H,W,2], valid [E,H,W,1])."""
+    ht, wd = disps.shape[-2:]
+    X0 = iproj(disps[ii], intrinsics[ii])
+    Gij = se3.relative(poses[ii], poses[jj])
+    X1 = se3.act(Gij[..., None, None, :], X0)
+    x, y, z = X1[..., 0], X1[..., 1], X1[..., 2]
+    fx, fy, cx, cy = _intr(intrinsics[jj])
+    front = z > 0.01
+    d = 1.0 / torch.where(front, z, torch.ones_like(z))
+    grid = coords_grid(ht, wd, disps.dtype, disps.device)
+    u = torch.where(front, fx * (x * d) + cx, grid[..., 0])
+    v = torch.where(front, fy * (y * d) + cy, grid[..., 1])
+    coords = torch.stack([u, v], dim=-1)
+    valid = (z > MIN_DEPTH_BA)[..., None].to(coords.dtype)
+    return coords, valid
+
+
+def induced_flow(poses, disps, intrinsics, ii, jj):
+    """Optical flow that the camera motion induces over the edges, and its
+    validity (droid_slam_tpu/geom/projective.py:196-200)."""
+    ht, wd = disps.shape[-2:]
+    coords0 = coords_grid(ht, wd, disps.dtype, disps.device)
+    coords1, valid, _ = projective_transform(poses, disps, intrinsics, ii, jj)
+    return coords1 - coords0, valid

@@ -40,3 +40,23 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mean = x32.mean(dim=(2, 3), keepdim=True)
     var = x32.var(dim=(2, 3), unbiased=False, keepdim=True)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+class _GradientClip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = torch.where(torch.isnan(g), torch.zeros_like(g), g)
+        return torch.where(g.abs() > 0.01, torch.zeros_like(g), g)
+
+
+def gradient_clip(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; the backward zeroes gradient entries that are NaN
+    or larger than 0.01 in magnitude (droid_slam_tpu/models/layers.py:
+    54-71). Outside autograd it returns x itself."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GradientClip.apply(x)
+    return x

@@ -8,7 +8,9 @@ each. With ``fused_epilogue`` (the JAX package's ``DROID_GRU_PALLAS=1``) the
 GRU instead runs its gate arithmetic in the two fused epilogues of
 ``ops/gru_cuda.py``. ``graph_agg`` also runs the upsampling-mask head on
 request, and ``upsample_disp`` turns a mask into full-resolution
-disparities (convex upsampling).
+disparities (convex upsampling). Under autograd (training) the flow and
+weight head and the damping head pass through ``gradient_clip``, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import gru_cuda
-from .layers import conv2d, conv_nobias, instance_norm
+from .layers import conv2d, conv_nobias, gradient_clip, instance_norm
 
 DIM = 32
 CORR_PLANES = 4 * (2 * 3 + 1) ** 2  # 196
@@ -187,7 +189,8 @@ def update_module(params, net, inp, corr, flow=None, ii=None,
     blk[2:, 128:] = w2
     bias4 = torch.cat([params["update.delta.2.bias"],
                        params["update.weight.2.bias"]])
-    head = conv_nobias(ds, blk) + bias4.to(net.dtype)[:, None, None]
+    head = gradient_clip(conv_nobias(ds, blk)
+                         + bias4.to(net.dtype)[:, None, None])
     delta = head[:, :2]
     weight = torch.sigmoid(head[:, 2:])
     if ii is None:
@@ -207,7 +210,7 @@ def graph_agg(params, net, ii, num_frames, compute_upmask=False):
     sums = x.new_zeros((num_frames,) + x.shape[1:]).index_add_(0, ii, x)
     mean = sums / counts.clamp(min=1.0)[:, None, None, None]
     y = F.relu(conv2d(params, "update.agg.conv2", mean))
-    eta = F.softplus(conv2d(params, "update.agg.eta.0", y))
+    eta = F.softplus(gradient_clip(conv2d(params, "update.agg.eta.0", y)))
     upmask = (conv2d(params, "update.agg.upmask.0", y) if compute_upmask
               else None)
     return 0.01 * eta[:, 0], upmask

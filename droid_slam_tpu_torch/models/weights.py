@@ -5,10 +5,14 @@ reference's scheme.
 The JAX package stores conv weights HWIO (``droid_slam_tpu/models/
 weights.py``); PyTorch convolutions take OIHW. ``from_jax_params`` carries a
 JAX parameter dict across and ``to_jax_params`` is its exact inverse. A
-``.pth`` is already OIHW and is read as it is (``load_pth``).
+``.pth`` is already OIHW and is read as it is (``load_pth``). The trainer
+writes ``.npz`` weights in the JAX package's layout (``save_npz``) and its
+resumable state in a file of its own (``save_train_state``).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -41,6 +45,34 @@ def to_jax_params(state: dict) -> dict:
 def load_npz(path: str) -> dict:
     with np.load(path) as data:
         return from_jax_params({k: data[k] for k in data.files})
+
+
+def save_npz(path: str, params: dict) -> None:
+    """Write ``params`` with the JAX package's key names and layouts (HWIO
+    convolutions), so that either package loads the file."""
+    np.savez(path, **to_jax_params(params))
+
+
+def save_train_state(path: str, params: dict, opt_state: dict, step: int,
+                     rng_state=None) -> None:
+    """The resumable training state: parameters, the optimizer's state
+    (``Optimizer.state_dict()``, which holds the schedule's count), the
+    step and the data generator's state. Written to a temporary file and
+    renamed, so that a crash mid-write leaves the last good state."""
+    payload = {"params": {k: v.detach().cpu() for k, v in params.items()},
+               "opt_state": opt_state, "step": int(step),
+               "rng_state": rng_state}
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_train_state(path: str, device="cpu"):
+    """(params on ``device``, opt_state, step, rng_state) written by
+    ``save_train_state``."""
+    payload = torch.load(path, map_location=device, weights_only=False)
+    return (payload["params"], payload["opt_state"], payload["step"],
+            payload["rng_state"])
 
 
 # the reference network's flow and weight heads have 3 output rows; the

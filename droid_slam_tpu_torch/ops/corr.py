@@ -62,6 +62,8 @@ def lookup_level_plain(vol: torch.Tensor, slots: torch.Tensor,
     EA = slots.shape[0]
     r = radius
     rd = 2 * r + 1
+    if vol.numel() == 0:     # a level pooled to nothing reads zeros
+        return coords.new_zeros((EA, coords.shape[1], rd * rd))
     x0 = torch.floor(coords[..., 0])
     y0 = torch.floor(coords[..., 1])
     dx = (coords[..., 0] - x0)[..., None]
@@ -78,7 +80,10 @@ def lookup_level_plain(vol: torch.Tensor, slots: torch.Tensor,
     row = (torch.where(slot_ok, slots, 0).long()[:, None] * HW
            + torch.arange(HW, device=vol.device))
     flat = row[..., None, None] * (h2 * w2) + idx
-    taps = vol.reshape(-1).take(flat).float() * inb.float()
+    # a gather, whose backward (the training forward's) is a scatter-add
+    # with a deterministic form, where take's put_ has none on the card
+    taps = vol.reshape(-1).gather(0, flat.reshape(-1)).reshape(flat.shape)
+    taps = taps.float() * inb.float()
 
     out = ((1 - dx) * (1 - dy))[..., None] * taps[:, :, :rd, :rd] \
         + (dx * (1 - dy))[..., None] * taps[:, :, 1:, :rd] \

@@ -1,6 +1,6 @@
 """The port stands alone: importing any of its modules (or chip_smoke.py,
-or demo_torch.py) pulls in neither JAX nor the JAX package, and its entry
-points default to the GPU."""
+demo_torch.py or train_torch.py) pulls in neither JAX nor the JAX package,
+and its entry points default to the GPU."""
 
 import inspect
 import os
@@ -26,7 +26,11 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     for m in ("ops.corr_cuda", "ops.gru", "ops.gru_cuda", "slam.backend",
               "slam.trajectory_filler", "slam.align", "slam.async_droid",
-              "slam.async_process", "eval.ate"):
+              "slam.async_process", "eval.ate", "lie.sim3", "ba.dense",
+              "models.droidnet", "train.losses", "train.trainer",
+              "train.logger", "data.rgbd_utils", "data.graph_utils",
+              "data.augmentation", "data.base", "data.tartan",
+              "data.factory", "data.synthetic", "data.fixtures"):
         assert "droid_slam_tpu_torch." + m in mods
     code = (
         "import importlib, sys, runpy\n"
@@ -34,6 +38,7 @@ def test_every_module_imports_without_jax():
         "    importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "runpy.run_path('demo_torch.py', run_name='not_main')\n"
+        "runpy.run_path('train_torch.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'droid_slam_tpu' or m.startswith('droid_slam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -43,6 +48,24 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
+
+
+def test_train_torch_defaults_to_cuda_and_refuses_without_it():
+    """train_torch.py's --device and init_train_state default to the card;
+    without one, neither trains on the CPU unasked."""
+    import runpy
+    mod = runpy.run_path(os.path.join(ROOT, "train_torch.py"),
+                         run_name="not_main")
+    assert mod["build_parser"]().parse_args([]).device == "cuda"
+    from droid_slam_tpu_torch.train.trainer import (TrainConfig,
+                                                    init_train_state)
+    default = inspect.signature(init_train_state).parameters["device"]
+    assert default.default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init_train_state(TrainConfig())
+        with pytest.raises(SystemExit, match="CUDA is not available"):
+            mod["main"](["--datasets", "synthetic"])
 
 
 def test_droid_defaults_to_cuda_and_refuses_without_it():
