@@ -24,6 +24,17 @@ with the trained weights:
                 frame and ``upsample=True`` (default epilogues), then
                 ``terminate()``; the keyframes must carry sensor
                 disparities and full-resolution ``disps_up``;
+  evaluate      evaluation_scripts/test_synthetic_torch.py's ``run`` at its
+                defaults (the tartanair preset at 320x512, 120 synthetic
+                frames, seed 7, buffer 256): tracking, ``terminate()``, and
+                the ATE to the exact ground truth within EVAL_ATE_BOUND;
+                then the reconstruction of its final video:
+                ``depth_filter`` and ``iproj_points`` on the card against
+                the CPU (EVAL_COUNT_SHARE, EVAL_POINT_RTOL) and timed, the
+                ``.npz`` -> ``view_reconstruction_torch.py`` -> PLY round
+                trip and the screenshot (a PNG decoded here and equal to
+                the render, above SHOT_FLOOR of non-background pixels), in
+                a temporary directory that is removed;
   track_async_ref, track_async, track_async_process
                 ``make_droid`` on N_ASYNC frames at 320x512 (the noise
                 texture through a sliding window) with the fused
@@ -74,9 +85,9 @@ filler, each). Phases
 print one JSON line each; then the kernel table, the card's name and power
 limit, and a last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line. The run has a hard deadline. It imports neither
-JAX nor the JAX package, and writes nothing but the kernel build under
-droid_slam_tpu_torch/build/ and the training phase's temporary files, which
-it removes.
+JAX nor the JAX package (nor cv2, Open3D or moderngl), and writes nothing
+but the kernel build under droid_slam_tpu_torch/build/ and the evaluate and
+training phases' temporary files, which it removes.
 """
 
 import faulthandler
@@ -111,8 +122,11 @@ STEREO_SHIFT = 48
 RGBD_SIZE = (240, 320)         # the tum preset's image size
 # the asynchronous phases: enough frames at 320x512 for the backend, which
 # starts after 32 keyframes, to run at least 2 cycles of ASYNC_ITERS global-BA
-# steps before terminate(), with ASYNC_SLEEP s between cycles
-N_ASYNC, ASYNC_BUFFER, ASYNC_SLEEP, ASYNC_ITERS = 128, 160, 1.0, 8
+# steps before terminate(), with ASYNC_SLEEP s between cycles: 96 (128
+# until the evaluate phase came; cut to keep the script inside its
+# deadline). In a 128-frame run 7 of the thread's cycles and 5 of the
+# process's had read no keyframe past the 96th (NVIDIA H100 80GB HBM3, 700 W)
+N_ASYNC, ASYNC_BUFFER, ASYNC_SLEEP, ASYNC_ITERS = 96, 160, 1.0, 8
 # bound on the largest gap between an asynchronous facade's backend poses
 # (after its last cycle) and those of the same cycles replayed by hand from
 # the inputs each merged (``_replay``). With PyTorch's deterministic kernels
@@ -147,6 +161,27 @@ PARITY_TOL = {"loss_rel": 2e-4, "grad_rel": 1e-2}
 # droid_slam_tpu/models/nets.py:166-167,185; its lookup is
 # droid_slam_tpu/ops/corr.py:459-472), and the port's runs their plain
 # versions under autograd
+# the evaluate phase: evaluation_scripts/test_synthetic_torch.py's run at its
+# own defaults (the tartanair preset at 320x512, 120 frames of the synthetic
+# box scene, seed EVAL_SEED, buffer 256, filter_thresh 1.75, backend steps
+# (7, 12)) with the trained weights
+EVAL_ARGV = ["--weights", CKPT, "--device", "cuda"]
+EVAL_SEED = 7
+# bound on its ATE RMSE to the exact ground truth, in scene units: the
+# trajectory spans ~2 units (0.88 x 0.85 x 2.23 for seed 7); random weights
+# read 0.93 or diverge (ACCURACY.md), and the trained checkpoint read
+# 0.024-0.056 on the JAX package's 80-frame 160x240 sequences; the bound is
+# a tenth of the extent, 4.6x below the random weights' reading
+EVAL_ATE_BOUND = 0.2
+# depth_filter on the card against the CPU on the run's final video: the
+# share of pixels whose count may differ (a warped pixel that lands at a
+# threshold's or a pixel's edge, where the last bit of f32 decides), and
+# iproj_points' gap relative to each point's size (f32 rounding)
+EVAL_COUNT_SHARE = 1e-3
+EVAL_POINT_RTOL = 1e-5
+# the screenshot (480x640): its share of pixels that are not the background
+SHOT_FLOOR = 0.02
+SHOT_BACKGROUND = (22, 22, 25)  # render_offscreen's background, RGB
 TRAIN_KERNEL_NOTE = ("0 launches by design: the training forward runs the "
                      "plain lookup and GRU under autograd, as JAX's runs "
                      "none of its Pallas kernels (droid_slam_tpu/ops/"
@@ -1033,10 +1068,10 @@ def run_async(dev, kind, ref_traj=None):
     return traj, {k: c_track[k] + c_term[k] for k in c_track}
 
 
-def _train_module():
+def _script(*parts):
+    """A script of the repository run as a module (not as __main__)."""
     import runpy
-    return runpy.run_path(os.path.join(ROOT, "train_torch.py"),
-                          run_name="chip_smoke")
+    return runpy.run_path(os.path.join(ROOT, *parts), run_name="chip_smoke")
 
 
 def _device_ms(prof):
@@ -1113,7 +1148,7 @@ def run_train(dev):
     from torch.profiler import ProfilerActivity, profile
     from droid_slam_tpu_torch.models import weights as weights_io
 
-    mod = _train_module()
+    mod = _script("train_torch.py")
     parser = mod["build_parser"]()
     tic = time.perf_counter()
     run = mod["Run"](parser.parse_args(TRAIN_ARGV))
@@ -1283,6 +1318,193 @@ def run_train_parity(dev):
     return counts
 
 
+def _read_png(path):
+    """An 8-bit RGB PNG as save_screenshot writes it (one IDAT stream, rows
+    without a filter), decoded with the standard library, each chunk's CRC
+    checked: [H,W,3] uint8."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {kind}")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    W, H, depth, ctype = hdr[:4]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, 1 + 3 * W)
+    if depth != 8 or ctype != 2 or raw[:, 0].any():
+        raise AssertionError(f"{path}: not 8-bit RGB rows without a filter")
+    return raw[:, 1:].reshape(H, W, 3)
+
+
+def run_evaluate(dev):
+    """The synthetic evaluation end to end on the card, then the
+    reconstruction from its final video: ``test_synthetic_torch.run``
+    (tracking, then ``terminate()`` over every frame), its ATE against the
+    ground truth held to EVAL_ATE_BOUND; ``depth_filter`` and
+    ``iproj_points`` on the card held to the same functions on a CPU copy
+    of the state, and timed; the ``.npz`` saved with
+    ``demo_torch.save_reconstruction``, turned into a PLY by
+    ``view_reconstruction_torch.py``, the PLY's vertices read back; the
+    screenshot written, decoded and held to the render. Files go to a
+    temporary directory that is removed. The launch counts are set to 0
+    before the run and read after tracking, around the filler and after
+    ``terminate()``; the lookup must launch in tracking and in the
+    filler."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.eval import viewer, visualization as vis
+    from droid_slam_tpu_torch.geom.filters import depth_filter, iproj_points
+
+    syn = _script("evaluation_scripts", "test_synthetic_torch.py")
+    args = syn["build_parser"]().parse_args(EVAL_ARGV)
+    counts = {}
+
+    def on_tracked(droid):
+        counts["track"] = _counts()
+        filler = droid.traj_filler
+
+        def counted_filler(stream):
+            before = _counts()
+            out = filler(stream)
+            after = _counts()
+            counts["filler"] = {k: after[k] - before[k] for k in after}
+            return out
+
+        droid.traj_filler = counted_filler
+
+    report = {"on_tracked": on_tracked}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    ate = float(syn["run"](args, EVAL_SEED, weights=CKPT, report=report))
+    torch.cuda.synchronize()
+    total = _counts()
+    counts["terminate"] = {k: total[k] - counts["track"][k] for k in total}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    droid = report["droid"]
+    video = droid.video
+
+    # the reconstruction's two functions on the card and on the CPU
+    snap = vis.snapshot(video)
+    t = snap["counter"]
+    on_dev = (snap["poses"], snap["disps"], snap["intrinsics"],
+              torch.arange(t, device=dev),
+              0.005 * snap["disps"][:t].mean(dim=(1, 2)))
+    on_cpu = tuple(x.cpu() for x in on_dev)
+    cnt_dev, cnt_cpu = depth_filter(*on_dev), depth_filter(*on_cpu)
+    count_share = float((cnt_dev.cpu() != cnt_cpu).float().mean())
+    pts_dev = iproj_points(*on_dev[:3])
+    pts_cpu = iproj_points(*on_cpu[:3])
+    point_gap = float(((pts_dev.cpu() - pts_cpu).abs()
+                       / pts_cpu.abs().clamp(min=1.0)).max())
+    filter_ms, filter_host_us = _time_ms(lambda: depth_filter(*on_dev))
+    iproj_ms, iproj_host_us = _time_ms(lambda: iproj_points(*on_dev[:3]))
+    # least times: the bytes each must move (disparities and poses read
+    # once, the counts or points written once) and its f32 operations
+    # (~60 a pixel and neighbour for the filter, ~30 a pixel for iproj)
+    N, h, w = snap["disps"].shape
+    px = t * h * w
+    bounds = {}
+    for name, nbytes, ops in (
+            ("depth_filter", N * h * w * 4 + N * 28 + px * 4, px * 6 * 60),
+            ("iproj_points", N * h * w * 4 + N * 28 + N * h * w * 12,
+             N * h * w * 30)):
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
+        bounds[name] = dict(bound_ms=max(tb, to),
+                            bound_by="bytes" if tb >= to else "operations",
+                            bytes=nbytes)
+    tic = time.perf_counter()
+    points, colors = vis.reconstruction_point_cloud(video)
+    cloud_s = time.perf_counter() - tic
+
+    # the files: .npz -> PLY, and the screenshot
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "reconstruction.npz")
+        _script("demo_torch.py")["save_reconstruction"](droid, npz)
+        ply = os.path.join(tmp, "reconstruction.ply")
+        _script("view_reconstruction_torch.py")["main"](
+            ["--reconstruction_path", npz, "--ply", ply, "--device", "cuda"])
+        with open(ply) as f:
+            lines = f.read().splitlines()
+        header = int(lines[2].split()[-1])
+        ply_vertices = len(lines) - lines.index("end_header") - 1
+        png = os.path.join(tmp, "screenshot.png")
+        tic = time.perf_counter()
+        shot = viewer.save_screenshot(png, video)
+        shot_s = time.perf_counter() - tic
+        img = _read_png(png) if shot else None
+        render = viewer.render_offscreen(viewer.build_scene(video))
+    left_behind = os.path.exists(tmp)
+    png_is_render = img is not None and np.array_equal(img, render)
+    shot_share = 0.0 if img is None else float(
+        (img != np.array(SHOT_BACKGROUND, np.uint8)).any(axis=-1).mean())
+
+    st = droid.terminate_stats
+    emit(phase="evaluate", weights=os.path.basename(CKPT), seed=EVAL_SEED,
+         frames=args.n_frames, image_size=[args.height, args.width],
+         buffer=args.buffer, filter_thresh=args.filter_thresh,
+         keyframes=report["keyframes"], track_s=report["track_s"],
+         kf_per_s=report["kf_per_s"],
+         frames_per_s=args.n_frames / report["track_s"],
+         terminate_stats=st, ate_rmse=ate, ate_bound=EVAL_ATE_BOUND,
+         launches=counts, peak_mem_gb=peak_gb,
+         reconstruction=dict(
+             points=len(points), colors_shape=list(colors.shape),
+             cloud_s=cloud_s, count_differ_share=count_share,
+             count_tol=EVAL_COUNT_SHARE, point_rel_gap=point_gap,
+             point_tol=EVAL_POINT_RTOL,
+             depth_filter=dict(ms=filter_ms, host_us=filter_host_us,
+                               **bounds["depth_filter"]),
+             iproj_points=dict(ms=iproj_ms, host_us=iproj_host_us,
+                               **bounds["iproj_points"]),
+             npz_ply_vertices=ply_vertices, ply_header_vertices=header,
+             screenshot=shot, screenshot_s=shot_s,
+             png_equals_render=png_is_render,
+             screenshot_non_background=shot_share, shot_floor=SHOT_FLOOR,
+             files_left=left_behind))
+    _require_launches(counts["track"], ["corr_lookup"], "evaluate (tracking)")
+    _require_launches(counts.get("filler", {"corr_lookup": 0}),
+                      ["corr_lookup"], "evaluate (filler)")
+    if total["gru_epilogue_a"] or total["gru_epilogue_b"]:
+        raise AssertionError(f"the default configuration launched the GRU "
+                             f"epilogue kernels: {total}")
+    if not ate <= EVAL_ATE_BOUND:      # false for NaN and inf too
+        raise AssertionError(f"evaluate: ATE RMSE {ate} is not within "
+                             f"{EVAL_ATE_BOUND}")
+    if not (count_share <= EVAL_COUNT_SHARE
+            and point_gap <= EVAL_POINT_RTOL):
+        raise AssertionError(f"evaluate: the card's depth_filter counts "
+                             f"differ from the CPU's at {count_share} of the "
+                             f"pixels, iproj_points by {point_gap}")
+    if not (len(points) > 0 and ply_vertices == header > 0):
+        raise AssertionError(f"evaluate: {len(points)} points, PLY "
+                             f"{ply_vertices} vertices of {header}")
+    if not (shot and png_is_render and shot_share >= SHOT_FLOOR):
+        raise AssertionError(f"evaluate: screenshot {shot}, equal to the "
+                             f"render {png_is_render}, non-background share "
+                             f"{shot_share} (floor {SHOT_FLOOR})")
+    if left_behind:
+        raise AssertionError(f"evaluate: {tmp} was not removed")
+    del droid, video, report
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
     signal.signal(signal.SIGALRM, _deadline)
     signal.alarm(DEADLINE_S)
@@ -1325,6 +1547,7 @@ def main():
         torch.cuda.empty_cache()
         c_stereo = run_mode(dev, "stereo")
         c_rgbd = run_mode(dev, "rgbd")
+        c_eval = run_evaluate(dev)
         # the asynchronous phases run PyTorch's deterministic kernels (sums
         # without atomics): the backend's cycles amplify the last bit of a
         # sum without bound on this scene, so that only a replay that
@@ -1345,7 +1568,8 @@ def main():
     # launches over every path; each path's own counts beside them
     paths = {"track": c_default, "track_fused": c_track,
              "terminate": c_term, "track_stereo": c_stereo,
-             "track_rgbd": c_rgbd, "track_async_ref": c_async_ref,
+             "track_rgbd": c_rgbd, "evaluate": c_eval,
+             "track_async_ref": c_async_ref,
              "track_async": c_async, "track_async_process": c_async_proc,
              "train": c_train, "train_parity": c_parity}
     src = "droid_slam_tpu_torch/csrc/"

@@ -2,7 +2,7 @@
 
     python demo_torch.py --imagedir DIR --calib calib/eth.txt \
         [--asynchronous] [--device cuda|cpu] [--trajectory_path T.txt] \
-        [--reconstruction_path R.npz]
+        [--reconstruction_path R.npz] [--screenshot S.png]
 
 The flags and flow of ``demo.py``: intrinsics from a calibration file
 (fx fy cx cy [distortion]), each image undistorted when the file has
@@ -12,7 +12,9 @@ BA and the trajectory filler; with ``--asynchronous`` the backend runs
 beside tracking, in a process when ``DROID_ASYNC_PROCESS=1``). Writes the
 camera-to-world trajectory [T,7] as text and, with
 ``--reconstruction_path``, the keyframes as an ``.npz`` with ``demo.py``'s
-fields. Runs on the card unless ``--device cpu``.
+fields, and with ``--screenshot`` a PNG of the reconstruction (point cloud
+and camera frusta) from the offscreen rasteriser. Runs on the card unless
+``--device cpu``.
 """
 
 import argparse
@@ -102,15 +104,13 @@ def parse_args(argv=None):
     parser.add_argument("--trajectory_path", default="trajectory.txt")
     parser.add_argument("--disable_vis", action="store_true")
     parser.add_argument("--screenshot", default=None,
-                        help="not available in the port yet: it needs the "
-                             "reconstruction viewer")
+                        help="render the final reconstruction (point cloud "
+                             "+ camera frusta) to this PNG with the "
+                             "offscreen software rasteriser (no display "
+                             "needed)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
-    if args.screenshot:
-        parser.error("--screenshot needs the reconstruction viewer, which "
-                     "the port does not have yet; leave the flag out")
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv=None):
@@ -154,6 +154,13 @@ def main(argv=None):
     if args.reconstruction_path:
         save_reconstruction(droid, args.reconstruction_path)
         print(f"saved reconstruction to {args.reconstruction_path}")
+
+    if args.screenshot:
+        from droid_slam_tpu_torch.eval.viewer import save_screenshot
+        # the asynchronous facades' backend video holds the final poses
+        if save_screenshot(args.screenshot, droid.video,
+                           getattr(droid, "video2", None)):
+            print(f"saved reconstruction render to {args.screenshot}")
 
 
 if __name__ == "__main__":

@@ -52,6 +52,15 @@ class DroidConfig:
     # DROID_ASYNC_PROCESS=1 slam/async_process.py); make_droid selects it
     asynchronous: bool = False
 
+    # visualisation and io: ``Droid`` starts the live viewer
+    # (eval/viewer.py::launch_viewer) in a daemon thread when enable_vis is
+    # set; t0, stride and reconstruction_path are the stream options of the
+    # command lines, recorded with the configuration as in JAX
+    enable_vis: bool = False
+    t0: int = 0
+    stride: int = 1
+    reconstruction_path: Optional[str] = None
+
 
 # per-dataset tuned defaults: the reference's evaluation scripts' argparse
 # defaults (droid_slam_tpu/config.py:52-85)

@@ -251,12 +251,15 @@ STEREO_BASELINE = 0.1  # rectified baseline, matches the fixed stereo edge
 
 def synthetic_stream(n_frames=120, image_size=(320, 512), seed=7,
                      box_half=2.0, step=0.10, rot_step=0.03,
-                     stereo=False, with_depth=False):
+                     stereo=False, with_depth=False, workers=1):
     """Evaluation stream: yields (t, image [C,H,W,3] uint8 BGR, intr [4]),
     C=2 with ``stereo`` (right view rendered at the rectified +0.1 x-axis
     baseline so the (i,i) stereo edges' fixed Gij is exact); with
     ``with_depth`` yields (t, image, depth [H,W] float32, intr) — z-depth
-    of the left view, the input demo.py feeds for RGB-D streams.
+    of the left view, the input demo.py feeds for RGB-D streams. With
+    ``workers`` > 1 the frames are rendered ahead by that many threads
+    (numpy releases the GIL in the renderer's array ops); they are the
+    same frames, in the same order.
 
     Use `synthetic_groundtruth` with the same arguments for the GT
     trajectory. Mirrors the image_stream generators in
@@ -266,7 +269,9 @@ def synthetic_stream(n_frames=120, image_size=(320, 512), seed=7,
     scene_seed = int(rng.integers(1, 2 ** 20))
     Rs, ts = random_trajectory(n_frames, rng, box_half, step, rot_step)
     intr = np.array([0.8 * W, 0.8 * W, W / 2, H / 2], np.float32)
-    for k, (R, t) in enumerate(zip(Rs, ts)):
+
+    def frame(k):
+        R, t = Rs[k], ts[k]
         img, depth = render_view(R, t, intr, (H, W), box_half, scene_seed)
         views = [img.astype(np.uint8)]
         if stereo:
@@ -276,9 +281,16 @@ def synthetic_stream(n_frames=120, image_size=(320, 512), seed=7,
             views.append(img_r.astype(np.uint8))
         stack = np.stack(views)
         if with_depth:
-            yield k, stack, depth.copy(), intr.copy()
-        else:
-            yield k, stack, intr.copy()
+            return k, stack, depth.copy(), intr.copy()
+        return k, stack, intr.copy()
+
+    if workers > 1:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(workers) as pool:
+            yield from pool.map(frame, range(len(Rs)))
+    else:
+        for k in range(len(Rs)):
+            yield frame(k)
 
 
 def synthetic_groundtruth(n_frames=120, image_size=(320, 512), seed=7,

@@ -1,8 +1,10 @@
-"""Absolute trajectory error (ATE) after a Umeyama alignment with scale.
+"""Absolute trajectory error (ATE) after a Umeyama alignment with scale,
+and the relative pose error (RPE).
 
-The port's own copy of ``droid_slam_tpu/eval/ate.py``'s
-``umeyama_alignment``, ``ate_rmse``, ``associate_timestamps`` and
-``evaluate_ate`` (numpy), so that nothing of the JAX package is imported.
+The port's own copy of ``droid_slam_tpu/eval/ate.py`` (numpy:
+``umeyama_alignment``, ``ate_rmse``, ``associate_timestamps``,
+``evaluate_ate``, ``rpe_pairs``, ``rpe``), so that nothing of the JAX
+package is imported.
 """
 
 from __future__ import annotations
@@ -74,3 +76,38 @@ def evaluate_ate(est_traj, ref_traj, t_est=None, t_ref=None, scale=True,
     rmse, err, s = ate_rmse(est_xyz, ref_xyz, scale=scale)
     return {"ate_rmse": rmse, "scale": s, "n_matches": len(est_xyz),
             "errors": err}
+
+
+def _pose_matrices(poses):
+    """[n,7] ([t,q]) -> [n,4,4] homogeneous matrices."""
+    from scipy.spatial.transform import Rotation
+
+    poses = np.asarray(poses, np.float64)
+    out = np.tile(np.eye(4), (len(poses), 1, 1))
+    out[:, :3, :3] = Rotation.from_quat(poses[:, 3:7]).as_matrix()
+    out[:, :3, 3] = poses[:, :3]
+    return out
+
+
+def rpe_pairs(est_poses, ref_poses, delta: int = 1):
+    """Per-pair relative pose errors, TUM-benchmark convention
+    (tartanair_tools evaluate_rpe.py:123-130): for each frame pair (i, i+d),
+    error44 = (est_rel)^-1 · ref_rel with x_rel = x[i+d]^-1 · x[i]; returns
+    (trans_err [m], rot_err [rad]) arrays."""
+    est = _pose_matrices(est_poses)
+    ref = _pose_matrices(ref_poses)
+    n = min(len(est), len(ref)) - delta
+    d_est = np.linalg.inv(est[delta:n + delta]) @ est[:n]
+    d_ref = np.linalg.inv(ref[delta:n + delta]) @ ref[:n]
+    err = np.linalg.inv(d_est) @ d_ref
+    t_err = np.linalg.norm(err[:, :3, 3], axis=-1)
+    tr = np.clip((np.trace(err[:, :3, :3], axis1=1, axis2=2) - 1) / 2, -1, 1)
+    return t_err, np.arccos(tr)
+
+
+def rpe(est_poses, ref_poses, delta: int = 1):
+    """Aggregate relative pose error. est/ref: [n,7] pose arrays ([t,q],
+    c2w). Returns (trans_rmse, rot_rmse radians)."""
+    t_err, r_err = rpe_pairs(est_poses, ref_poses, delta)
+    return (float(np.sqrt(np.mean(t_err ** 2))),
+            float(np.sqrt(np.mean(r_err ** 2))))

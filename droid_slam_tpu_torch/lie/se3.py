@@ -80,6 +80,11 @@ def act(g, X):
     return torch.cat([y, X[..., 3:4].expand(y.shape[:-1] + (1,))], dim=-1)
 
 
+def act3(g, x):
+    """3-vectors x[..., 3]: R x + t."""
+    return quat_rotate(g[..., 3:7], x) + g[..., :3]
+
+
 def so3_exp(phi):
     theta_sq = (phi * phi).sum(-1, keepdim=True)
     theta = torch.sqrt(theta_sq)

@@ -121,6 +121,17 @@ class Droid(TrackPipeline):
             fused_epilogue=config.gru_fused_epilogue)
         self.terminate_stats = None
 
+        # the live viewer (eval/viewer.py), off unless asked for; terminate()
+        # stops it
+        self._vis_stop = self._vis_thread = None
+        if config.enable_vis:
+            from ..eval.viewer import launch_viewer
+            self._vis_stop = threading.Event()
+            self._vis_thread = threading.Thread(
+                target=launch_viewer, args=(self.video, None, self._vis_stop),
+                daemon=True)
+            self._vis_thread.start()
+
     @torch.no_grad()
     @_f32_matmuls
     def terminate(self, stream=None, backend_steps=(7, 12)):
@@ -133,6 +144,8 @@ class Droid(TrackPipeline):
         Wall times land in ``terminate_stats``: ``backend_s`` (per pass),
         ``backend_edges`` (per pass), ``filler_s`` and ``total_s``."""
         t_all = time.perf_counter()
+        if self._vis_stop is not None:
+            self._vis_stop.set()
         self.flush()
         del self.frontend
 

@@ -20,10 +20,8 @@ from droid_slam_tpu_torch.models import weights as tweights
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "r5_006000.npz")
-# JAX fields of modes the port does not run: edge-parallel frontend,
-# visualization, the demo CLI's stream options
-JAX_ONLY = {"edge_parallel", "enable_vis", "t0", "stride",
-            "reconstruction_path"}
+# JAX fields of modes the port does not run: the edge-parallel frontend
+JAX_ONLY = {"edge_parallel"}
 PORT_ONLY = {"gru_fused_epilogue"}
 
 

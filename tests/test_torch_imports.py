@@ -1,10 +1,12 @@
 """The port stands alone: importing any of its modules (or chip_smoke.py,
-demo_torch.py or train_torch.py) pulls in neither JAX nor the JAX package,
-and its entry points default to the GPU."""
+demo_torch.py, train_torch.py, view_reconstruction_torch.py or the
+evaluation scripts ``evaluation_scripts/*_torch.py``) pulls in neither JAX
+nor the JAX package, and its entry points default to the GPU."""
 
 import inspect
 import os
 import pkgutil
+import runpy
 import subprocess
 import sys
 
@@ -14,6 +16,21 @@ import torch
 import droid_slam_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the port's evaluation command lines and the reconstruction viewer, each
+# with the required arguments that get it past parsing
+CLIS = {
+    "view_reconstruction_torch.py": ["--reconstruction_path", "r.npz"],
+    "evaluation_scripts/test_synthetic_torch.py": [],
+    "evaluation_scripts/test_euroc_torch.py": ["--datapath", "d", "--gt",
+                                               "g"],
+    "evaluation_scripts/test_tum_torch.py": ["--datapath", "d"],
+    "evaluation_scripts/test_eth3d_torch.py": ["--datapath", "d"],
+    "evaluation_scripts/test_tartanair_torch.py": ["--datapath", "d",
+                                                   "--gt_path", "g"],
+    "evaluation_scripts/validate_tartanair_torch.py": ["--datapath", "d"],
+    "evaluation_scripts/ate_curve_torch.py": ["--ckpts", "c.npz"],
+}
+SCRIPTS = sorted(CLIS)
 
 
 def _modules():
@@ -30,7 +47,10 @@ def test_every_module_imports_without_jax():
               "models.droidnet", "train.losses", "train.trainer",
               "train.logger", "data.rgbd_utils", "data.graph_utils",
               "data.augmentation", "data.base", "data.tartan",
-              "data.factory", "data.synthetic", "data.fixtures"):
+              "data.factory", "data.synthetic", "data.fixtures",
+              "data.stream", "geom.filters", "eval.kitti",
+              "eval.visualization", "eval.viewer", "utils.timer",
+              "utils.device"):
         assert "droid_slam_tpu_torch." + m in mods
     code = (
         "import importlib, sys, runpy\n"
@@ -39,6 +59,8 @@ def test_every_module_imports_without_jax():
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "runpy.run_path('demo_torch.py', run_name='not_main')\n"
         "runpy.run_path('train_torch.py', run_name='not_main')\n"
+        f"for p in {SCRIPTS!r}:\n"
+        "    runpy.run_path(p, run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'droid_slam_tpu' or m.startswith('droid_slam_tpu.')]\n"
         "assert not bad, bad\n"
@@ -213,3 +235,18 @@ def test_f32_scopes_hold_across_threads(monkeypatch):
     assert not any(t.is_alive() for t in threads)
     assert not bad
     assert [f.allow_tf32 for f in flags] == [True, True]
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_cli_defaults_to_cuda_and_refuses_without_it(script):
+    """Each evaluation script and view_reconstruction_torch.py: --device is
+    cuda unless given; without CUDA the script exits with a message before
+    it reads anything (the paths it is given do not exist)."""
+    mod = runpy.run_path(os.path.join(ROOT, script), run_name="not_main")
+    parse = mod.get("build_parser")
+    args = (parse().parse_args(CLIS[script]) if parse
+            else mod["parse_args"](CLIS[script]))
+    assert args.device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA is not available"):
+            mod["main"](CLIS[script])
