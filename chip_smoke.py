@@ -75,7 +75,15 @@ feature-map sizes, 40x64 and 30x40.
 
 Before the paths, ``ba_global`` runs the BA alone at the JAX package's
 t=800 global-BA size (800 keyframes, 12802 edges, 30x40 plane, 2 GN
-iterations) and prints its seconds per iteration and peak memory.
+iterations) and prints its seconds per iteration and peak memory; then
+``global_ba_tum512`` runs the whole global BA (``DroidBackend``: the
+proposal over all t^2 pairs in chunks, the alt-correlation sweeps, the BA)
+at the tum preset's buffer, 512 keyframes of tools/bench_global_ba_torch.py's
+synthetic video at 240x320, passes of 2 and 2 steps: it holds GBA_PAIRS
+frame distances on the card to the CPU port, counts the proposal's
+distance chunks, checks the state's health, and prints the edges, the stage
+times, seconds per step and peak memory. Like the training phases it
+launches none of the three kernels, and prints that.
 
 Kernel times count device time only (``_time_ms``), with the wrappers' host
 microseconds per call beside them. Each path runs with the kernels' launch
@@ -182,6 +190,21 @@ EVAL_POINT_RTOL = 1e-5
 # the screenshot (480x640): its share of pixels that are not the background
 SHOT_FLOOR = 0.02
 SHOT_BACKGROUND = (22, 22, 25)  # render_offscreen's background, RGB
+# the global_ba_tum512 phase: tools/bench_global_ba_torch.py's synthetic
+# video filling the tum preset's buffer (512 keyframes at 240x320) and
+# DroidBackend passes of 2 and 2 steps; its proposal over all 512^2 pairs
+# crosses GBA_DIST_CALLS chunks of DepthVideo._DIST_CHUNK pairs. The frame
+# distance of GBA_PAIRS random pairs of distinct frames on the card against
+# the CPU port: f32 sums of 1200 pixels in another order, to GBA_DIST_RTOL;
+# the quaternions stay unit to GBA_QUAT_TOL (f32 rounding: 3.6e-7 at t=500,
+# NVIDIA H100 80GB HBM3, 700 W)
+GBA_STEPS = (2, 2)
+GBA_DIST_CALLS = 8
+GBA_PAIRS, GBA_DIST_RTOL, GBA_QUAT_TOL = 4096, 1e-4, 1e-5
+GBA_KERNEL_NOTE = ("0 launches by design: the global BA correlates on the "
+                   "fly (alt_lookup, XLA in JAX, not Pallas) and its sweep "
+                   "runs the update operator without the fused epilogues "
+                   "(droid_slam_tpu/state/graph.py:522-565)")
 TRAIN_KERNEL_NOTE = ("0 launches by design: the training forward runs the "
                      "plain lookup and GRU under autograd, as JAX's runs "
                      "none of its Pallas kernels (droid_slam_tpu/ops/"
@@ -524,6 +547,66 @@ def run_ba_global(dev):
         raise AssertionError(f"global BA at T=64: card and CPU differ by "
                              f"{pose_gap} (poses), {disp_gap} (disparities)")
     torch.cuda.empty_cache()
+
+
+def run_global_ba_tum(dev):
+    """The global BA at the tum preset's buffer: tools/bench_global_ba_torch.py
+    on its synthetic video of 512 keyframes at 240x320 with the preset's
+    backend settings, passes of GBA_STEPS steps (the first normalizes).
+    Checked: GBA_PAIRS distances on the card against the CPU port, the
+    proposal's GBA_DIST_CALLS distance chunks in each pass, edges beyond the
+    neighbours, and a healthy state (finite poses, finite positive
+    disparities, unit quaternions)."""
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.config import PRESETS
+    from droid_slam_tpu_torch.geom import distance as gdist
+
+    tool = _script("tools", "bench_global_ba_torch.py")
+    cfg = PRESETS["tum"]
+    t, size = cfg.buffer, cfg.image_size
+    if any(getattr(cfg, k) != v for k, v in tool["BACKEND"].items()):
+        raise AssertionError(f"the tum preset's backend settings are not "
+                             f"the tool's {tool['BACKEND']}")
+    video = tool["synthetic_video"](t, size, dev)
+
+    rng = np.random.default_rng(1)
+    ii = rng.integers(0, t, GBA_PAIRS)
+    jj = (ii + rng.integers(1, t, GBA_PAIRS)) % t
+    d_card = video.distance(ii, jj, beta=cfg.beta).cpu()
+    d_cpu = gdist.frame_distance(
+        video.poses.cpu(), video.disps.cpu(), video.intrinsics[0].cpu(),
+        torch.as_tensor(ii), torch.as_tensor(jj), cfg.beta)
+    dist_rel = float(((d_card - d_cpu).abs() / d_cpu.abs()).max())
+
+    _reset_counts()
+    rec = tool["run"](t, size, GBA_STEPS, dev, video=video)
+    counts = _counts()
+    passes = [rec["stages"][f"pass{i}"] for i in range(len(GBA_STEPS))]
+    health = rec["health"]
+    emit(phase="global_ba_tum512", keyframes=t, image_size=list(size),
+         steps=list(GBA_STEPS), edges=[p["edges"] for p in passes],
+         dist_chunks=[p["dist_chunks"] for p in passes],
+         s_per_step=rec["value"], step_times_s=rec["step_times_s"],
+         stages=rec["stages"], graph=rec["graph"], health=health,
+         memory=rec["memory"], distance_card_vs_cpu=dict(
+             pairs=GBA_PAIRS, max_rel=dist_rel, rtol=GBA_DIST_RTOL),
+         launches=counts, launches_note=GBA_KERNEL_NOTE)
+    if not dist_rel <= GBA_DIST_RTOL:
+        raise AssertionError(f"global_ba_tum512: distances on the card part "
+                             f"from the CPU's by {dist_rel}")
+    chunks = [p["dist_chunks"] for p in passes]
+    if chunks != [GBA_DIST_CALLS] * len(GBA_STEPS):
+        raise AssertionError(f"global_ba_tum512: distance chunks {chunks}, "
+                             f"not {GBA_DIST_CALLS} per pass")
+    if not min(p["edges"] for p in passes) > 6 * t:
+        raise AssertionError(f"global_ba_tum512: edges {rec['graph']}")
+    if not (health["poses_finite"] and health["disps_finite_pos"]
+            and health["quat_norm_max_err"] <= GBA_QUAT_TOL):
+        raise AssertionError(f"global_ba_tum512: unhealthy state {health}")
+    del video
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _reset_counts():
@@ -1538,6 +1621,7 @@ def main():
                                    timed=False)
         gru = check_gru(dev)
         run_ba_global(dev)
+        c_gba = run_global_ba_tum(dev)
         droid, _, _, c_default = run_track(dev, fused=False, profile=False)
         del droid
         torch.cuda.empty_cache()
@@ -1571,7 +1655,8 @@ def main():
              "track_rgbd": c_rgbd, "evaluate": c_eval,
              "track_async_ref": c_async_ref,
              "track_async": c_async, "track_async_process": c_async_proc,
-             "train": c_train, "train_parity": c_parity}
+             "train": c_train, "train_parity": c_parity,
+             "global_ba_tum512": c_gba}
     src = "droid_slam_tpu_torch/csrc/"
     meta = {"corr_lookup": ("corr_lookup.cu",
                             "droid_slam_tpu/ops/corr_pallas.py:84",

@@ -1,11 +1,12 @@
 """Global bundle adjustment over all keyframes.
 
 Counterpart of ``droid_slam_tpu/slam/backend.py``. ``DroidBackend``:
-normalize the scale (mean disparity 1) unless a stereo rig or a depth sensor
-fixes it, build a fresh factor graph with on-the-fly correlation and room
-for 16 edges per keyframe, propose proximity edges over all keyframes, run
-the chunked global BA (``FactorGraph.update_lowmem``, which also upsamples
-with ``upsample``), and drop the graph. ``DroidAsyncBackend``, the
+normalize the scale (mean disparity 1, unless the caller asks not to, or a
+stereo rig or a depth sensor fixes it), build a fresh factor graph with
+on-the-fly correlation and room for 16 edges per keyframe, propose
+proximity edges over all keyframes, run the chunked global BA
+(``FactorGraph.update_lowmem``, which also upsamples with ``upsample``),
+and drop the graph. ``DroidAsyncBackend``, the
 asynchronous facades' backend, keeps one graph with no edge cap across its
 calls: each call proposes proximity edges over the keyframes it has now,
 runs the global BA with the inactive edges too, and retires the edges older
@@ -27,11 +28,12 @@ class DroidBackend:
         self.backend_nms = cfg.backend_nms
         self.upsample = cfg.upsample
 
-    def __call__(self, steps=12):
-        """One global-BA pass of ``steps`` steps; returns its edge count."""
+    def __call__(self, steps=12, normalize=True):
+        """One global-BA pass of ``steps`` steps, first rescaling the mean
+        disparity to 1 when ``normalize``; returns its edge count."""
         v = self.video
         t = v.counter
-        if not v.stereo and not bool(v.disps_sens.any()):
+        if normalize and not v.stereo and not bool(v.disps_sens.any()):
             v.normalize()
         graph = FactorGraph(v, self.params, max_factors=16 * t,
                             corr_impl="alt", upsample=self.upsample)

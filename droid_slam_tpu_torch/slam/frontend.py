@@ -58,6 +58,9 @@ class DroidFrontend:
             self.t1 - 5, max(self.t1 - self.frontend_window, 0),
             rad=self.frontend_radius, nms=self.frontend_nms,
             thresh=self.frontend_thresh, beta=self.beta, remove=True)
+        # the frames this update may move, for the viewer
+        # (droid_slam_tpu/slam/frontend.py:151)
+        self.video.dirty[int(g.ii.min()):self.t1] = True
         g.update(None, None, use_inactive=True, n_iters=self.iters1,
                  sens_frame=self.t1 - 1)
 
@@ -92,7 +95,9 @@ class DroidFrontend:
                                 thresh=self.frontend_thresh, remove=False)
         g.update(1, use_inactive=True, n_iters=8)
         self.is_initialized = True
-        self.video.ready = True
+        with self.video.get_lock():
+            self.video.ready = True
+            self.video.dirty[:self.t1] = True
         g.rm_factors(g.ii < self.warmup - 4, store=True)
 
     def __call__(self):

@@ -162,13 +162,23 @@ class DepthVideo:
             self.poses, self.disps, self.intrinsics, ii, jj)
         return coords, valid
 
+    # most pairs per frame_distance call: each pair holds ~70 bytes per
+    # pixel of warped points and temporaries, so the backend's proposal over
+    # all t^2 pairs (1M at t=1000) runs in chunks, as in
+    # droid_slam_tpu/state/video.py:225-244
+    _DIST_CHUNK = 32768
+
     def distance(self, ii, jj, beta=0.3, bidirectional=True):
-        """Frame distance of each pair (ii[k], jj[k]) -> [len(ii)] tensor."""
+        """Frame distance of each pair (ii[k], jj[k]) -> [len(ii)] tensor,
+        computed ``_DIST_CHUNK`` pairs at a time."""
         ii = torch.as_tensor(np.atleast_1d(ii), device=self.device)
         jj = torch.as_tensor(np.atleast_1d(jj), device=self.device)
-        return gdist.frame_distance(self.poses, self.disps,
-                                    self.intrinsics[0], ii, jj, beta,
-                                    bidirectional=bidirectional)
+        return torch.cat([
+            gdist.frame_distance(self.poses, self.disps, self.intrinsics[0],
+                                 ii[s:s + self._DIST_CHUNK],
+                                 jj[s:s + self._DIST_CHUNK], beta,
+                                 bidirectional=bidirectional)
+            for s in range(0, max(len(ii), 1), self._DIST_CHUNK)])
 
     def ba(self, target, weight, plan, iters=2, lm=1e-4, ep=0.1,
            motion_only=False):

@@ -1,7 +1,8 @@
 """The port stands alone: importing any of its modules (or chip_smoke.py,
-demo_torch.py, train_torch.py, view_reconstruction_torch.py or the
-evaluation scripts ``evaluation_scripts/*_torch.py``) pulls in neither JAX
-nor the JAX package, and its entry points default to the GPU."""
+demo_torch.py, train_torch.py, view_reconstruction_torch.py, the
+evaluation scripts ``evaluation_scripts/*_torch.py`` or
+tools/bench_global_ba_torch.py) pulls in neither JAX nor the JAX package,
+and its entry points default to the GPU."""
 
 import inspect
 import os
@@ -16,8 +17,8 @@ import torch
 import droid_slam_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the port's evaluation command lines and the reconstruction viewer, each
-# with the required arguments that get it past parsing
+# the port's evaluation command lines, the reconstruction viewer and the
+# global-BA tool, each with the required arguments that get it past parsing
 CLIS = {
     "view_reconstruction_torch.py": ["--reconstruction_path", "r.npz"],
     "evaluation_scripts/test_synthetic_torch.py": [],
@@ -29,6 +30,7 @@ CLIS = {
                                                    "--gt_path", "g"],
     "evaluation_scripts/validate_tartanair_torch.py": ["--datapath", "d"],
     "evaluation_scripts/ate_curve_torch.py": ["--ckpts", "c.npz"],
+    "tools/bench_global_ba_torch.py": [],
 }
 SCRIPTS = sorted(CLIS)
 
@@ -239,9 +241,10 @@ def test_f32_scopes_hold_across_threads(monkeypatch):
 
 @pytest.mark.parametrize("script", SCRIPTS)
 def test_cli_defaults_to_cuda_and_refuses_without_it(script):
-    """Each evaluation script and view_reconstruction_torch.py: --device is
-    cuda unless given; without CUDA the script exits with a message before
-    it reads anything (the paths it is given do not exist)."""
+    """Each evaluation script, view_reconstruction_torch.py and the global-BA
+    tool: --device is cuda unless given; without CUDA the script exits with
+    a message before it reads anything (the paths it is given do not
+    exist)."""
     mod = runpy.run_path(os.path.join(ROOT, script), run_name="not_main")
     parse = mod.get("build_parser")
     args = (parse().parse_args(CLIS[script]) if parse

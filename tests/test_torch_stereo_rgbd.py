@@ -49,11 +49,15 @@ seed 11. What the readings show, and what they leave open:
   0.034-0.125, ATE 0.007-0.026;
   (3) the port against JAX parts further than either against itself: its
   largest readings are 1.2-2.5x theirs in poses, 1.5-1.7x in median
-  disparity and 2.0-2.4x in keyframe ATE. Whether
-  that is the rounding of every layer differing (against one in (2)) or a
-  small systematic difference that single steps do not show is open
-  (ROADMAP.md §3). The sensor prior anchors RGB-D's disparities, so that
-  mode agrees a hundred times more closely.
+  disparity and 2.0-2.4x in keyframe ATE;
+  (4) with each framework run on the other's encoder outputs (the "swap"
+  script mode), which differ by bf16 rounding only, the pose gap moves
+  both ways (seed 12: 0.095 to 0.043 and 0.009; seed 16: 0.015 to 0.037
+  and 0.020), and every swapped reading (0.009-0.069) lies within the
+  frameworks' own range in (2): the gap is the rounding of every layer
+  differing, amplified by the run, not one layer (ROADMAP.md §3 item 4).
+  The sensor prior anchors RGB-D's disparities, so that mode agrees a
+  hundred times more closely.
 
 JAX is imported inside the tests and fixtures that use it, so that the CUDA
 test runs on a machine without JAX:
@@ -788,6 +792,78 @@ def _run_jax_interpret(mode, seed):
             return pickle.load(f)
 
 
+def _features_patch(mp, video_cls, port, record=None, feats=None):
+    """Patch ``video_cls.set_frame`` (the port's when ``port``, else JAX's)
+    to record each keyframe's encoder outputs (fmap, net, inp), keyed by
+    timestamp, in JAX's layout as f32 numpy into ``record``, or to write
+    those of ``feats`` in their place: the layer-swap diagnostic."""
+    import inspect
+
+    import jax.numpy as jnp
+    orig = video_cls.set_frame
+    sig = inspect.signature(orig)
+
+    def to_jax(name, x):
+        x = torch.as_tensor(x).float() if port else np.asarray(x, np.float32)
+        if port:
+            x = x.movedim(-3, -1).numpy()
+        return np.array(x, np.float32)
+
+    def from_jax(name, x):
+        if port:
+            return torch.as_tensor(x).movedim(-1, -3).to(torch.bfloat16)
+        return jnp.asarray(x, jnp.bfloat16)
+
+    def set_frame(*a, **k):
+        b = sig.bind(*a, **k)
+        b.apply_defaults()
+        t = float(b.arguments["tstamp"])
+        if all(b.arguments[n] is not None for n in ("fmap", "net", "inp")):
+            if record is not None:
+                record[t] = {n: to_jax(n, b.arguments[n])
+                             for n in ("fmap", "net", "inp")}
+            if feats is not None and t in feats:
+                for n in ("fmap", "net", "inp"):
+                    b.arguments[n] = from_jax(n, feats[t][n])
+        return orig(*b.args, **b.kwargs)
+
+    mp.setattr(video_cls, "set_frame", set_frame)
+
+
+def _layer_swap(mode, frames):
+    """The layer-swap diagnostic: each framework's run, recording its
+    encoders' outputs, then each run again with the other's outputs
+    written in their place. Returns the readings of the port against JAX
+    as they are, with JAX's features in the port, and with the port's in
+    JAX, and the features' own largest gaps."""
+    from droid_slam_tpu.state.video import DepthVideo as JVideo
+    from droid_slam_tpu_torch.state.video import DepthVideo as TVideo
+
+    jf, tf = {}, {}
+    with pytest.MonkeyPatch.context() as mp:
+        _features_patch(mp, JVideo, False, record=jf)
+        jax_run = _run_jax(mode, frames)
+    with pytest.MonkeyPatch.context() as mp:
+        _features_patch(mp, TVideo, True, record=tf)
+        port_run = _run_torch(mode, frames)
+    with pytest.MonkeyPatch.context() as mp:
+        _features_patch(mp, TVideo, True, feats=jf)
+        port_jf = _run_torch(mode, frames)
+    with pytest.MonkeyPatch.context() as mp:
+        _features_patch(mp, JVideo, False, feats=tf)
+        jax_tf = _run_jax(mode, frames)
+    gaps = {n: float(max(np.abs(jf[t][n] - tf[t][n]).max() for t in jf))
+            for n in ("fmap", "net", "inp")}
+    out = {"features_max_gap": gaps}
+    for what, got, ref in (("port-vs-jax", port_run, jax_run),
+                           ("port+jax-features-vs-jax", port_jf, jax_run),
+                           ("jax+port-features-vs-port", jax_tf, port_run)):
+        same = (got["track"]["tstamps"] == ref["track"]["tstamps"]
+                and got["track"]["edges"] == ref["track"]["edges"])
+        out[what] = _readings(got, ref) if same else "graphs differ"
+    return out
+
+
 if __name__ == "__main__":
     # The readings behind the docstring, on other scenes:
     #   PYTHONPATH=. JAX_PLATFORMS=cpu \
@@ -797,7 +873,9 @@ if __name__ == "__main__":
     # the same state. Each framework against itself with only its GRU
     # epilogues' rounding changed: "jax", JAX with its Pallas epilogues in
     # interpret mode against JAX default; "port", the port's fused
-    # epilogues against its default.
+    # epilogues against its default. "swap": the layer-swap diagnostic
+    # (``_layer_swap``), each framework run on the other's encoder
+    # outputs.
     import sys
     from droid_slam_tpu.state.graph import FactorGraph as JGraph
     from droid_slam_tpu_torch.models import weights as tweights
@@ -806,6 +884,9 @@ if __name__ == "__main__":
     for seed in [int(a) for a in args if a.isdigit()] or [11]:
         for mode in [a for a in args if a in MODES] or MODES:
             fr = _frames(mode, seed)
+            if "swap" in args:
+                print(seed, mode, "swap", _layer_swap(mode, fr), flush=True)
+                continue
             if "jax" in args:
                 ref = _run_jax(mode, fr)
                 got, what = _run_jax_interpret(mode, seed), "jax-interpret"
