@@ -61,9 +61,34 @@ with the trained weights:
                 kernels, one sample through RESUME_ITERS iterations);
   train_parity  sample_loss and its gradient on the card against the CPU
                 port on the same inputs (PARITY_*, f32, TF32 off), to the
-                JAX package's own bounds (PARITY_TOL).
+                JAX package's own bounds (PARITY_TOL);
+  track_edge_parallel
+                ``DroidConfig(edge_parallel=2)`` with the fused epilogues
+                on a mesh of two shards that both sit on the card
+                (EP_DEVICES): all three kernels inside the sharded update;
+                30 frames at 320x512 of JAX's edge-parallel test scene
+                (EP_SCENE), held to the serial frontend on the same frames
+                (equal keyframes and edges, poses and disparities to
+                EP_TOL; both with deterministic kernels); the edges per
+                shard; then, printed and not held, the same two runs on
+                track_fused's rolled-noise frames beside a serial run
+                whose GraphAgg sums are one unit in the last place
+                larger (how far rounding of that size carries them);
+  global_ba_mesh
+                one ``update_lowmem`` step from that tracker's state,
+                serial and with the chunks split over EP_DEVICES, each on a
+                fresh copy of the video, held to each other (GBA_MESH_TOL);
+  train_dp      data-parallel training at TRAIN_DP_ARGV: ``--devices 1``
+                (a real NCCL group of one rank) equal bit for bit to the
+                plain step on the same batch, then DP_WORLD spawned ranks
+                sharing the card through gloo, one sample each, held to
+                the plain step on the batch of 2 (TRAIN_DP_TOL), and
+                their averaged gradients to the mean of each rank's block
+                stepped alone; each rank's device and backend.
 The training phases launch none of the three kernels, as JAX's training
-forward runs none of its Pallas kernels; they print that.
+forward runs none of its Pallas kernels; they print that. The machine has
+one card, so the multi-device phases show the sharded arithmetic and the
+NCCL path, not a speed on several cards.
 
 The two input modes see one scene: a right view shifted by STEREO_SHIFT px
 (whole feature pixels) and the depth of the fronto-parallel plane that shift
@@ -79,7 +104,7 @@ iterations) and prints its seconds per iteration and peak memory; then
 ``global_ba_tum512`` runs the whole global BA (``DroidBackend``: the
 proposal over all t^2 pairs in chunks, the alt-correlation sweeps, the BA)
 at the tum preset's buffer, 512 keyframes of tools/bench_global_ba_torch.py's
-synthetic video at 240x320, passes of 2 and 2 steps: it holds GBA_PAIRS
+synthetic video at 240x320, one pass of 2 steps: it holds GBA_PAIRS
 frame distances on the card to the CPU port, counts the proposal's
 distance chunks, checks the state's health, and prints the edges, the stage
 times, seconds per step and peak memory. Like the training phases it
@@ -98,6 +123,7 @@ but the kernel build under droid_slam_tpu_torch/build/ and the evaluate and
 training phases' temporary files, which it removes.
 """
 
+import contextlib
 import faulthandler
 import json
 import os
@@ -133,7 +159,8 @@ RGBD_SIZE = (240, 320)         # the tum preset's image size
 # steps before terminate(), with ASYNC_SLEEP s between cycles: 96 (128
 # until the evaluate phase came; cut to keep the script inside its
 # deadline). In a 128-frame run 7 of the thread's cycles and 5 of the
-# process's had read no keyframe past the 96th (NVIDIA H100 80GB HBM3, 700 W)
+# process's had read no keyframe past the 96th; at 80 frames the process
+# ran 1 cycle before terminate() (NVIDIA H100 80GB HBM3, 700 W)
 N_ASYNC, ASYNC_BUFFER, ASYNC_SLEEP, ASYNC_ITERS = 96, 160, 1.0, 8
 # bound on the largest gap between an asynchronous facade's backend poses
 # (after its last cycle) and those of the same cycles replayed by hand from
@@ -154,7 +181,7 @@ TRAIN_ARGV = ["--datasets", "synthetic", "--ckpt", CKPT, "--device", "cuda",
               "--image_size", "384", "512", "--n_frames", "7", "--edges",
               "24", "--iters", "15", "--batch", "4", "--restart_prob", "0.2",
               "--synthetic_clips", "4"]
-N_TRAIN_TIMED = 3
+N_TRAIN_TIMED = 1   # 3 until the multi-device phases came
 # the save-and-resume check, with deterministic kernels, steps one sample
 # of the batch through RESUME_ITERS iterations; the ops of one sample
 # through ATTR_ITERS iterations are attributed by aten op
@@ -192,19 +219,45 @@ SHOT_FLOOR = 0.02
 SHOT_BACKGROUND = (22, 22, 25)  # render_offscreen's background, RGB
 # the global_ba_tum512 phase: tools/bench_global_ba_torch.py's synthetic
 # video filling the tum preset's buffer (512 keyframes at 240x320) and
-# DroidBackend passes of 2 and 2 steps; its proposal over all 512^2 pairs
+# one DroidBackend pass of 2 steps; its proposal over all 512^2 pairs
 # crosses GBA_DIST_CALLS chunks of DepthVideo._DIST_CHUNK pairs. The frame
 # distance of GBA_PAIRS random pairs of distinct frames on the card against
 # the CPU port: f32 sums of 1200 pixels in another order, to GBA_DIST_RTOL;
 # the quaternions stay unit to GBA_QUAT_TOL (f32 rounding: 3.6e-7 at t=500,
 # NVIDIA H100 80GB HBM3, 700 W)
-GBA_STEPS = (2, 2)
+GBA_STEPS = (2,)   # passes of 2 and 2 steps until the multi-device phases
 GBA_DIST_CALLS = 8
 GBA_PAIRS, GBA_DIST_RTOL, GBA_QUAT_TOL = 4096, 1e-4, 1e-5
 GBA_KERNEL_NOTE = ("0 launches by design: the global BA correlates on the "
                    "fly (alt_lookup, XLA in JAX, not Pallas) and its sweep "
                    "runs the update operator without the fused epilogues "
                    "(droid_slam_tpu/state/graph.py:522-565)")
+# the multi-device phases: the edge-parallel frontend and the chunk-parallel
+# global BA on a mesh of two shards that both sit on the one card, held as
+# JAX holds its own (tests/test_edge_parallel_mode.py: the largest se3 log
+# of the pose differences, the mean disparity gap; __graft_entry__.py:
+# 254-255); data-parallel training with train_torch.py's published
+# configuration at batch 2 (restarts off), DP_WORLD gloo ranks on the card
+# held to the plain step at JAX's data-parallel bounds
+# (tests/test_train_step.py:237-241)
+EP_DEVICES = ("cuda:0", "cuda:0")
+EP_TOL = {"pose_log": 3e-2, "disp_mean": 0.15}
+# the edge-parallel comparison's scene: JAX's (the synthetic box stream of
+# tests/test_edge_parallel_mode.py) at 320x512, N_WARM + N_TIMED + N_PROF
+# frames. The bench's rolled noise amplifies rounding: there two shards
+# and the serial update part in their edges (first card run), and on the
+# CPU at 64x96 by 0.15 in poses, while one shard equals the serial update
+# bit for bit. The phase prints those frames' gaps beside a witness (the
+# serial run with its GraphAgg sums one unit in the last place larger)
+# and holds only the box scene
+EP_SCENE = dict(n_frames=N_WARM + N_TIMED + N_PROF, seed=11, step=0.12,
+                rot_step=0.04)
+GBA_MESH_TOL = {"poses": dict(rtol=2e-4, atol=2e-4),
+                "disps": dict(rtol=2e-3, atol=2e-4)}
+TRAIN_DP_ARGV = TRAIN_ARGV + ["--batch", "2", "--restart_prob", "0"]
+DP_WORLD, DP_TIMEOUT_S, DP_JOIN_S = 2, 300.0, 240.0
+TRAIN_DP_TOL = {"rtol": 2e-4, "atol": 2e-5, "loss_rel": 1e-4,
+                "grad_rel": 1e-4}
 TRAIN_KERNEL_NOTE = ("0 launches by design: the training forward runs the "
                      "plain lookup and GRU under autograd, as JAX's runs "
                      "none of its Pallas kernels (droid_slam_tpu/ops/"
@@ -726,6 +779,224 @@ def run_track(dev, fused, profile):
         raise AssertionError(f"expected {t_end} keyframes of "
                              f"{H // 8}x{W // 8}, got {tuple(disps.shape)}")
     return droid, base, intr, counts
+
+
+def _track_gaps(got, ref):
+    """Two tracked states (``run_track``'s) compared as JAX's
+    tests/test_edge_parallel_mode.py does: equal keyframes and edges, the
+    largest se3 log of the pose differences, the mean disparity gap."""
+    import torch
+    from droid_slam_tpu_torch.lie import se3
+
+    same_kf = len(got["poses"]) == len(ref["poses"])
+    same = same_kf and got["edges"] == ref["edges"]
+    out = dict(same_keyframes_and_edges=same,
+               keyframes=[len(got["poses"]), len(ref["poses"])],
+               edges=[len(got["edges"]), len(ref["edges"])],
+               edges_in_one_only=len(set(got["edges"])
+                                     ^ set(ref["edges"])),
+               pose_log_gap=float("inf"), mean_disp_gap=float("inf"),
+               tol=EP_TOL)
+    if same_kf:
+        with torch.no_grad():
+            dp = se3.log(se3.mul(se3.inv(ref["poses"].double()),
+                                 got["poses"].double()))
+        out.update(pose_log_gap=float(dp.abs().max()),
+                   mean_disp_gap=float((got["disps"] - ref["disps"])
+                                       .abs().mean()))
+    return out
+
+
+@contextlib.contextmanager
+def _nudged_graph_agg():
+    """Inside, every GraphAgg sum is one unit in the last place larger
+    (the sums follow a ReLU, so they are >= 0 and the next representable
+    value is the bit pattern plus one): a change of the size of the
+    rounding by which the sharded sums part from the serial ones."""
+    import torch
+    from droid_slam_tpu_torch.models import nets
+
+    orig = nets.graph_agg_sums
+    bits = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float32: torch.int32}
+
+    def nudged(*a, **k):
+        counts, sums = orig(*a, **k)
+        sums = sums.clone()
+        sums.view(bits[sums.dtype]).add_(1)
+        return counts, sums
+
+    nets.graph_agg_sums = nudged
+    try:
+        yield
+    finally:
+        nets.graph_agg_sums = orig
+
+
+def run_track_edge_parallel(dev, base, intr):
+    """The edge-parallel frontend at 320x512, held to the serial one: JAX's
+    edge-parallel test scene (EP_SCENE: the synthetic box stream) tracked
+    by ``Droid`` with the fused epilogues and the bench's thresholds,
+    serial and with ``DroidConfig(edge_parallel=2)`` on EP_DEVICES (both
+    shards on the one card), each with deterministic kernels; equal
+    keyframes and edges, poses and disparities to EP_TOL. Launch counts
+    are set to 0 before the sharded run and read after. Then, printed and
+    not held: the same two runs on track_fused's rolled-noise frames
+    (``base``, ``intr``), and beside them the serial run with its GraphAgg
+    sums nudged by one unit in the last place (``_nudged_graph_agg``)
+    against the plain serial run, which shows how far rounding of that
+    size alone carries those frames. Returns the sharded tracker of the
+    box scene and its counts."""
+    import torch
+    from droid_slam_tpu_torch.config import DroidConfig
+    from droid_slam_tpu_torch.data.synthetic import synthetic_stream
+    from droid_slam_tpu_torch.slam.droid import Droid
+
+    tic = time.perf_counter()
+    frames = list(synthetic_stream(image_size=(H, W), workers=8, **EP_SCENE))
+    render_s = time.perf_counter() - tic
+    rolled = [(t, _frame(base, t)[None], intr)
+              for t in range(N_WARM + N_TIMED + N_PROF)]
+    devices = [torch.device(d) for d in EP_DEVICES]
+
+    def track(edge_devices, frames=frames):
+        cfg = DroidConfig(buffer=64, image_size=(H, W), warmup=8,
+                          filter_thresh=-1.0, keyframe_thresh=-1.0,
+                          frontend_window=20, frontend_thresh=17.5,
+                          frontend_radius=2, frontend_nms=1, weights=CKPT,
+                          gru_fused_epilogue=True,
+                          edge_parallel=len(edge_devices or ()))
+        torch.cuda.reset_peak_memory_stats()
+        droid = Droid(cfg, device=dev, edge_devices=edge_devices)
+        _reset_counts()
+        for k, (t, img, intr) in enumerate(frames):
+            if k == N_WARM:
+                torch.cuda.synchronize()
+                tic, kf0 = time.perf_counter(), droid.video.counter
+            droid.track(float(t), img[0], intrinsics=intr)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - tic
+        rate = (droid.video.counter - kf0) / secs
+        droid.flush()
+        torch.cuda.synchronize()
+        n, g = droid.video.counter, droid.frontend.graph
+        return droid, _counts(), rate, dict(
+            edges=sorted(zip(g.ii.tolist(), g.jj.tolist())),
+            poses=droid.video.poses[:n].cpu(),
+            disps=droid.video.disps[:n].cpu(),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        serial, _, serial_rate, ref = track(None)
+        del serial
+        torch.cuda.empty_cache()
+        droid, counts, rate, got = track(devices)
+        rolled_runs = {}
+        for name, edge_devices, nudge in (("serial", None, False),
+                                          ("sharded", devices, False),
+                                          ("nudged_serial", None, True)):
+            with (_nudged_graph_agg() if nudge
+                  else contextlib.nullcontext()):
+                rolled_runs[name] = track(edge_devices, rolled)[3]
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    g = droid.frontend.graph
+    gaps = _track_gaps(got, ref)
+    r_ref = rolled_runs["serial"]
+    rolled_gaps = {k: _track_gaps(rolled_runs[k], r_ref)
+                   for k in ("sharded", "nudged_serial")}
+    finite = bool(torch.isfinite(got["poses"]).all()
+                  and torch.isfinite(got["disps"]).all())
+    emit(phase="track_edge_parallel", weights=os.path.basename(CKPT),
+         scene=EP_SCENE, frames=len(frames), render_s=render_s,
+         devices=[str(d) for d in g.mesh.devices],
+         edges_per_shard=[len(b) for b in g._blocks("net")],
+         keyframes=int(droid.video.counter), edges=len(got["edges"]),
+         kf_per_s=rate, serial_kf_per_s=serial_rate,
+         timed_frames=len(frames) - N_WARM, deterministic=True,
+         finite=finite, launches=counts, vs_serial=gaps,
+         peak_mem_gb=got["peak_mem_gb"],
+         serial_peak_mem_gb=ref["peak_mem_gb"],
+         rolled_noise_vs_serial=rolled_gaps)
+    _require_launches(counts, list(counts), "track_edge_parallel")
+    if not finite or not gaps["same_keyframes_and_edges"]:
+        raise AssertionError(f"track_edge_parallel: finite={finite}, "
+                             f"keyframes or edges differ from the serial "
+                             f"run's: {gaps}")
+    if not (gaps["pose_log_gap"] < EP_TOL["pose_log"]
+            and gaps["mean_disp_gap"] < EP_TOL["disp_mean"]):
+        raise AssertionError(f"track_edge_parallel against the serial run: "
+                             f"{gaps}")
+    return droid, counts
+
+
+def _video_copy(v):
+    """A fresh DepthVideo holding v's keyframes."""
+    import torch
+    from droid_slam_tpu_torch.state.video import DepthVideo
+
+    out = DepthVideo((8 * v.h, 8 * v.w), v.buffer, v.device, stereo=v.stereo,
+                     upsample=v.disps_up is not None)
+    with torch.no_grad():
+        for name in DepthVideo._FIELDS:
+            if getattr(v, name) is not None:
+                getattr(out, name).copy_(getattr(v, name))
+    out.counter = v.counter
+    return out
+
+
+def run_global_ba_mesh(droid):
+    """One global-BA step (``update_lowmem``) from the edge-parallel
+    tracker's state, serial and with its chunks split over EP_DEVICES, each
+    on a fresh copy of the video, with JAX's proposal and tolerances
+    (__graft_entry__.py:234-256, GBA_MESH_TOL). Returns the counts."""
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.parallel.mesh import Mesh
+    from droid_slam_tpu_torch.slam.droid import f32_matmuls
+    from droid_slam_tpu_torch.state.graph import FactorGraph
+
+    mesh = Mesh(EP_DEVICES)
+    out = {}
+    _reset_counts()
+    for name, m in (("serial", None), ("mesh", mesh)):
+        v = _video_copy(droid.video)
+        g = FactorGraph(v, droid.params, max_factors=16 * v.counter,
+                        corr_impl="alt", mesh=m)
+        # JAX's proposal there: every pair the cap admits
+        g.add_proximity_factors(rad=2, nms=1, thresh=1e9, beta=0.3)
+        edges = sorted(zip(g.ii.tolist(), g.jj.tolist()))
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        with torch.no_grad(), f32_matmuls():
+            g.update_lowmem(steps=1)
+        torch.cuda.synchronize()
+        out[name] = dict(edges=edges, s=time.perf_counter() - tic,
+                         poses=v.poses[:v.counter].cpu().numpy(),
+                         disps=v.disps[:v.counter].cpu().numpy())
+        del g, v
+    counts = _counts()
+    a, b = out["serial"], out["mesh"]
+    pose_ok = np.allclose(b["poses"], a["poses"], **GBA_MESH_TOL["poses"])
+    disp_ok = np.allclose(b["disps"], a["disps"], **GBA_MESH_TOL["disps"])
+    n_edges = len(a["edges"])
+    emit(phase="global_ba_mesh", keyframes=int(droid.video.counter),
+         devices=[str(d) for d in mesh.devices], edges=n_edges,
+         edges_equal=a["edges"] == b["edges"], serial_s=a["s"],
+         mesh_s=b["s"],
+         pose_max_gap=float(np.abs(a["poses"] - b["poses"]).max()),
+         disp_max_gap=float(np.abs(a["disps"] - b["disps"]).max()),
+         tol=GBA_MESH_TOL, launches=counts, launches_note=GBA_KERNEL_NOTE)
+    if not (a["edges"] == b["edges"] and n_edges > mesh.size):
+        raise AssertionError(f"global_ba_mesh: {n_edges} edges, equal "
+                             f"{a['edges'] == b['edges']}")
+    if not (pose_ok and disp_ok):
+        raise AssertionError("global_ba_mesh: the mesh step parts from the "
+                             "serial one")
+    torch.cuda.empty_cache()
+    return counts
 
 
 def run_terminate(droid, base, intr):
@@ -1347,6 +1618,174 @@ def run_train(dev):
     return counts
 
 
+def _spy_grads(opt):
+    """The gradients ``opt.step`` is given (before its norm clip), copied
+    to the host into the dict returned, on each call."""
+    seen, step = {}, opt.step
+
+    def spy(grads):
+        seen.update({k: v.detach().float().cpu() for k, v in grads.items()})
+        return step(grads)
+
+    opt.step = spy
+    return seen
+
+
+def _grad_rel(a, b):
+    """Relative error of the flat gradient tree a against b."""
+    import torch
+    flat = lambda t: torch.cat([t[k].double().reshape(-1) for k in sorted(t)])
+    fa, fb = flat(a), flat(b)
+    return float(torch.linalg.norm(fa - fb) / torch.linalg.norm(fb))
+
+
+def _train_dp_rank(rank, argv, init, out, device):
+    """One of train_dp's spawned ranks: gloo on ``device``, one step of
+    train_torch's Run on its block of the global batch; it writes its
+    device, backend and (rank 0) the stepped parameters, the metrics and
+    the averaged gradients the optimizer took."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import train_torch
+    from droid_slam_tpu_torch.parallel import mesh as pmesh
+
+    torch.use_deterministic_algorithms(True)
+    args = train_torch.build_parser().parse_args(argv)
+    dp = pmesh.init_data_parallel(rank, DP_WORLD, "gloo", device,
+                                  DP_TIMEOUT_S, init)
+    try:
+        run = train_torch.Run(args, dp)
+        grads = _spy_grads(run.opt)
+        batch = run.next_batch()
+        metrics = run.step(batch)
+        rec = dict(rank=rank, device=str(dp.device), backend=dp.backend,
+                   samples=int(batch["images"].shape[0]))
+        if rank == 0:
+            rec.update(metrics=metrics, grads=grads, params={
+                k: v.detach().cpu() for k, v in run.params.items()})
+        torch.save(rec, f"{out}.{rank}")
+    finally:
+        pmesh.shutdown_data_parallel()
+
+
+def run_train_dp(dev):
+    """Data-parallel training at train_torch.py's published configuration
+    (TRAIN_DP_ARGV: batch 2, restarts off, deterministic kernels):
+    (a) ``--devices 1``, a real NCCL group of one rank (train_torch's own
+    device and backend choice), held bit for bit to the plain step on the
+    same batch; (b) DP_WORLD spawned ranks sharing the card through gloo,
+    one sample each, held to the plain step on the whole batch
+    (TRAIN_DP_TOL), and their averaged gradients, before the optimizer's
+    norm clip, to the mean of the gradients of each rank's block stepped
+    alone in this process (TRAIN_DP_TOL["grad_rel"]: Adam's first step
+    moves each entry by about lr g/|g| and would hide a gradient off by a
+    constant factor; the update operator's clipped backward makes a
+    block's gradient differ from the whole batch's share, as JAX's pmean
+    does). Returns the counts (the training path launches none of the
+    three kernels)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    sys.path.insert(0, ROOT)
+    import train_torch
+    from droid_slam_tpu_torch.parallel import mesh as pmesh
+
+    parser = train_torch.build_parser()
+    _reset_counts()
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = train_torch.Run(parser.parse_args(TRAIN_DP_ARGV))
+        t0 = time.perf_counter()
+        m_plain = plain.step(plain.next_batch())
+        plain_s = time.perf_counter() - t0
+        args = parser.parse_args(TRAIN_DP_ARGV + ["--devices", "1"])
+        devices, backend = train_torch.rank_plan(args)
+        dp = pmesh.init_data_parallel(
+            0, 1, backend, devices[0], DP_TIMEOUT_S,
+            f"tcp://localhost:{pmesh.free_port()}")
+        try:
+            one = train_torch.Run(args, dp)
+            t0 = time.perf_counter()
+            m_one = one.step(one.next_batch())
+            one_s = time.perf_counter() - t0
+        finally:
+            pmesh.shutdown_data_parallel()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    exact = all(torch.equal(plain.params[k], one.params[k])
+                for k in plain.params) and m_plain == m_one
+    ref = {k: v.detach().cpu() for k, v in plain.params.items()}
+    del plain, one
+    torch.cuda.empty_cache()
+    # each rank's block alone: the gradients the ranks must average to
+    blocks = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for r in range(DP_WORLD):
+            run = train_torch.Run(parser.parse_args(TRAIN_DP_ARGV))
+            seen = _spy_grads(run.opt)
+            run.step(pmesh.shard_batch(run.next_batch(), pmesh.DataParallel(
+                r, DP_WORLD, torch.device(dev), "none")))
+            blocks.append(seen)
+            del run
+    finally:
+        torch.use_deterministic_algorithms(False)
+    block_mean = {k: sum(b[k] for b in blocks) / DP_WORLD for k in blocks[0]}
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank")
+        init = f"tcp://localhost:{pmesh.free_port()}"
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_train_dp_rank,
+                                 args=(TRAIN_DP_ARGV, init, out, dev),
+                                 nprocs=DP_WORLD, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.perf_counter() - t0 > DP_JOIN_S:
+                    raise TimeoutError(f"train_dp: the ranks did not finish "
+                                       f"within {DP_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{out}.{r}") for r in range(DP_WORLD)]
+    counts = _counts()
+    got = ranks[0]
+    gap = max(float((got["params"][k] - ref[k]).abs().max()) for k in ref)
+    close = all(np.allclose(got["params"][k].numpy(), ref[k].numpy(),
+                            rtol=TRAIN_DP_TOL["rtol"],
+                            atol=TRAIN_DP_TOL["atol"]) for k in ref)
+    loss_rel = abs(got["metrics"]["loss"] - m_plain["loss"]) \
+        / abs(m_plain["loss"])
+    grad_rel = _grad_rel(got["grads"], block_mean)
+    emit(phase="train_dp", argv=TRAIN_DP_ARGV,
+         nccl_world_1=dict(device=str(devices[0]), backend=backend,
+                           exact=exact, plain_step_s=plain_s,
+                           dp_step_s=one_s, loss=m_one["loss"]),
+         gloo_ranks=dict(ranks=[{k: r[k] for k in ("rank", "device",
+                                                    "backend", "samples")}
+                                for r in ranks],
+                         spawn_to_join_s=spawn_s, param_max_gap=gap,
+                         params_close=close, loss=got["metrics"]["loss"],
+                         plain_loss=m_plain["loss"], loss_rel=loss_rel,
+                         grad_rel_to_blocks=grad_rel),
+         tol=TRAIN_DP_TOL, launches=counts, launches_note=TRAIN_KERNEL_NOTE)
+    if not exact:
+        raise AssertionError("train_dp: the NCCL step of one rank differs "
+                             "from the plain step")
+    if not (close and loss_rel <= TRAIN_DP_TOL["loss_rel"]
+            and grad_rel <= TRAIN_DP_TOL["grad_rel"]):
+        raise AssertionError(f"train_dp: {DP_WORLD} gloo ranks part from the "
+                             f"plain step: params {gap}, loss {loss_rel}, "
+                             f"gradients {grad_rel}")
+    return counts
+
+
 def run_train_parity(dev):
     """sample_loss and its gradient on the card against the CPU port on the
     same inputs (PARITY_*), in f32 with TF32 off."""
@@ -1629,6 +2068,10 @@ def main():
         c_term = run_terminate(droid, base, intr)
         del droid
         torch.cuda.empty_cache()
+        droid, c_ep = run_track_edge_parallel(dev, base, intr)
+        c_gba_mesh = run_global_ba_mesh(droid)
+        del droid
+        torch.cuda.empty_cache()
         c_stereo = run_mode(dev, "stereo")
         c_rgbd = run_mode(dev, "rgbd")
         c_eval = run_evaluate(dev)
@@ -1644,6 +2087,7 @@ def main():
         finally:
             torch.use_deterministic_algorithms(False)
         c_train = run_train(dev)
+        c_train_dp = run_train_dp(dev)
         c_parity = run_train_parity(dev)
     finally:
         signal.alarm(0)
@@ -1656,7 +2100,8 @@ def main():
              "track_async_ref": c_async_ref,
              "track_async": c_async, "track_async_process": c_async_proc,
              "train": c_train, "train_parity": c_parity,
-             "global_ba_tum512": c_gba}
+             "global_ba_tum512": c_gba, "track_edge_parallel": c_ep,
+             "global_ba_mesh": c_gba_mesh, "train_dp": c_train_dp}
     src = "droid_slam_tpu_torch/csrc/"
     meta = {"corr_lookup": ("corr_lookup.cu",
                             "droid_slam_tpu/ops/corr_pallas.py:84",

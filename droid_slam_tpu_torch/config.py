@@ -39,6 +39,11 @@ class DroidConfig:
     backend_radius: int = 2
     backend_nms: int = 3
 
+    # edge-parallel frontend (parallel/frontend.py): the update operator's
+    # edges in contiguous blocks over this many devices, cuda:0..N-1 unless
+    # the tracker is given its devices (0 = serial)
+    edge_parallel: int = 0
+
     # the ConvGRU's gate epilogues as two fused kernels (csrc/gru_epilogue.cu)
     # in the frontend's and the trajectory filler's updates: the port's
     # counterpart of DROID_GRU_PALLAS=1, off by default as in JAX

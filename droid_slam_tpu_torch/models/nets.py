@@ -205,9 +205,23 @@ def graph_agg(params, net, ii, num_frames, compute_upmask=False):
     with ``compute_upmask``, the upsampling-mask head: (eta [num_frames,h,w],
     upmask [num_frames,576,h,w] in the network's dtype, or None). Frames
     without edges get the heads of zeros."""
+    counts, sums = graph_agg_sums(params, net, ii, num_frames)
+    return graph_agg_heads(params, counts, sums, compute_upmask)
+
+
+def graph_agg_sums(params, net, ii, num_frames):
+    """graph_agg's per-frame edge counts [num_frames] and feature sums
+    [num_frames,128,h,w] over these edges: with the edges sharded, each
+    shard's are summed across shards before ``graph_agg_heads`` (JAX's
+    ``psum_axis``, droid_slam_tpu/models/nets.py:333-349)."""
     x = F.relu(conv2d(params, "update.agg.conv1", net))
     counts = x.new_zeros(num_frames).index_add_(0, ii, x.new_ones(x.shape[0]))
     sums = x.new_zeros((num_frames,) + x.shape[1:]).index_add_(0, ii, x)
+    return counts, sums
+
+
+def graph_agg_heads(params, counts, sums, compute_upmask=False):
+    """graph_agg's mean and heads from the (summed) counts and sums."""
     mean = sums / counts.clamp(min=1.0)[:, None, None, None]
     y = F.relu(conv2d(params, "update.agg.conv2", mean))
     eta = F.softplus(gradient_clip(conv2d(params, "update.agg.eta.0", y)))

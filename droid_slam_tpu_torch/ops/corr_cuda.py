@@ -3,7 +3,8 @@
 ``lookup_pyramid_slots`` samples every pyramid level for each active edge
 through a slot table, as ``droid_slam_tpu/ops/corr_pallas.py::
 lookup_pyramid_slots`` does. A CUDA tensor goes to the kernel (one launch for
-all levels, counted in ``LAUNCHES``); a CPU tensor goes to the plain twin,
+all levels, counted in ``LAUNCHES``), launched on the operands' own device
+whatever device is current; a CPU tensor goes to the plain twin,
 ``ops/corr.py::lookup_pyramid_plain``.
 """
 
@@ -62,11 +63,13 @@ def _launch(pyramid, slots, coords, radius):
     ptrs = [v.data_ptr() for v in pyramid] + [0] * (4 - L)
     h2 = (ctypes.c_int * 4)(*[v.shape[2] for v in pyramid], *[0] * (4 - L))
     w2 = (ctypes.c_int * 4)(*[v.shape[3] for v in pyramid], *[0] * (4 - L))
-    err = _build.lib().droid_corr_lookup(
-        L, *ptrs, ctypes.addressof(h2), ctypes.addressof(w2),
-        int(dtype == torch.bfloat16), EA, EB, HW, coords.data_ptr(),
-        slots.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the launch goes to the current device: make it the operands' own
+    with torch.cuda.device(dev):
+        err = _build.lib().droid_corr_lookup(
+            L, *ptrs, ctypes.addressof(h2), ctypes.addressof(w2),
+            int(dtype == torch.bfloat16), EA, EB, HW, coords.data_ptr(),
+            slots.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"corr lookup kernel launch failed: "
                            f"cudaError {err}")

@@ -2,7 +2,8 @@
 
 ``gru_epilogue_a`` and ``gru_epilogue_b`` take the NCHW tensors of
 ``ops/gru.py``'s plain twins. A CUDA tensor goes to the kernel (each launch
-counted in ``LAUNCHES_A`` / ``LAUNCHES_B``); a CPU tensor goes to the twin.
+counted in ``LAUNCHES_A`` / ``LAUNCHES_B``), launched on the operands' own
+device whatever device is current; a CPU tensor goes to the twin.
 """
 
 from __future__ import annotations
@@ -63,11 +64,12 @@ def gru_epilogue_a(zrc, cf, pre_zr, net, gzr):
                for _ in range(2))
     if E == 0:
         return z, rnet
-    _raise_on(_build.lib().droid_gru_epilogue_a(
-        int(net.dtype == torch.bfloat16), int(vec8), E, HW, zrc.data_ptr(),
-        cf.data_ptr(), pre_zr.data_ptr(), net.data_ptr(), gzr.data_ptr(),
-        z.data_ptr(), rnet.data_ptr(),
-        torch.cuda.current_stream(net.device).cuda_stream), "A")
+    with torch.cuda.device(net.device):
+        _raise_on(_build.lib().droid_gru_epilogue_a(
+            int(net.dtype == torch.bfloat16), int(vec8), E, HW,
+            zrc.data_ptr(), cf.data_ptr(), pre_zr.data_ptr(), net.data_ptr(),
+            gzr.data_ptr(), z.data_ptr(), rnet.data_ptr(),
+            torch.cuda.current_stream(net.device).cuda_stream), "A")
     LAUNCHES_A += 1
     return z, rnet
 
@@ -83,10 +85,11 @@ def gru_epilogue_b(qc, cf, pre_q, net, z, gq):
     out = torch.empty(net.shape, dtype=net.dtype, device=net.device)
     if E == 0:
         return out
-    _raise_on(_build.lib().droid_gru_epilogue_b(
-        int(net.dtype == torch.bfloat16), int(vec8), E, HW, qc.data_ptr(),
-        cf.data_ptr(), pre_q.data_ptr(), net.data_ptr(), z.data_ptr(),
-        gq.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(net.device).cuda_stream), "B")
+    with torch.cuda.device(net.device):
+        _raise_on(_build.lib().droid_gru_epilogue_b(
+            int(net.dtype == torch.bfloat16), int(vec8), E, HW,
+            qc.data_ptr(), cf.data_ptr(), pre_q.data_ptr(), net.data_ptr(),
+            z.data_ptr(), gq.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(net.device).cuda_stream), "B")
     LAUNCHES_B += 1
     return out

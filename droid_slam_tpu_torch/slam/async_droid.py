@@ -12,11 +12,15 @@ BA steps. ``terminate()`` sets ``video2.ready``: the thread runs a last cycle
 up to the tracker's count and stops; then the trajectory filler runs on the
 backend's video.
 
-On CUDA the thread issues its work on a stream of its own, so that its
-kernels can fill the tracker's idle gaps on the device. The tracker writes on
-the device's default stream: the snapshot waits for the writes already
-issued there, and the default stream waits for the snapshot's copies before
-the tracker's later work, which may overwrite or free what they read.
+On a machine with a second card the backend (``video2``, its graph and the
+trajectory filler) runs there (``backend_device``; JAX puts them on
+``devs[1]``, droid_slam_tpu/slam/async_droid.py:47-52), and the snapshot's
+copies move to it. Otherwise it shares the tracker's device and, on CUDA,
+issues its work on a stream of its own, so that its kernels can fill the
+tracker's idle gaps. The tracker writes on its device's default stream: the
+snapshot waits for the writes already issued there, and that stream waits
+for the snapshot's copies before the tracker's later work, which may
+overwrite or free what they read.
 """
 
 from __future__ import annotations
@@ -38,15 +42,29 @@ from .trajectory_filler import PoseTrajectoryFiller
 START_KEYFRAMES = 32  # the backend waits for more keyframes than this
 
 
+def backend_device(tracker, count=None):
+    """The asynchronous backend's device: the first card other than the
+    tracker's when the machine has more than one (``count``, by default
+    ``torch.cuda.device_count()``), else the tracker's own."""
+    tracker = torch.device(tracker)
+    if tracker.type != "cuda":
+        return tracker
+    count = torch.cuda.device_count() if count is None else count
+    if count < 2:
+        return tracker
+    return torch.device("cuda", 1 if (tracker.index or 0) == 0 else 0)
+
+
 @contextlib.contextmanager
-def after_tracker_writes(stream):
+def after_tracker_writes(stream, tracker=None):
     """For work issued inside on ``stream`` (the thread's current stream,
     or None on the CPU): it starts after the work already issued on the
-    default stream, and the default stream's later work starts after it."""
+    tracker's default stream (on ``tracker``, by default the stream's
+    device), and that stream's later work starts after it."""
     if stream is None:
         yield
         return
-    default = torch.cuda.default_stream(stream.device)
+    default = torch.cuda.default_stream(tracker or stream.device)
     stream.wait_stream(default)
     yield
     default.wait_stream(stream)
@@ -80,21 +98,21 @@ class DroidAsync(TrackPipeline):
     def __init__(self, config: DroidConfig, sleep_time: float = 10.0,
                  backend_iters: int = 8, device="cuda"):
         super().__init__(config, device)
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        bdev = backend_device(self.device)
+        self._stream = (torch.cuda.Stream(bdev) if bdev.type == "cuda"
+                        else None)
+        params2 = {k: v.to(bdev) for k, v in self.params.items()}
         # allocated on the backend's stream, which uses them: memory the
         # caching allocator handed out on the default stream would go back
         # to the tracker when the backend frees it, while the backend's
         # kernels might still run on it
         with torch.cuda.stream(self._stream):
             self.video2 = DepthVideo(config.image_size, config.buffer,
-                                     self.device, stereo=config.stereo,
+                                     bdev, stereo=config.stereo,
                                      upsample=config.upsample)
-            self.backend = DroidAsyncBackend(self.params, self.video2,
-                                             config)
+            self.backend = DroidAsyncBackend(params2, self.video2, config)
         self.traj_filler = PoseTrajectoryFiller(
-            self.params, self.video2,
-            fused_epilogue=config.gru_fused_epilogue)
+            params2, self.video2, fused_epilogue=config.gru_fused_epilogue)
         self.sleep_time = sleep_time
         self.backend_iters = backend_iters
         # per backend cycle: t0, t1, scale, dG, edges, start (wall clock),
@@ -127,12 +145,13 @@ class DroidAsync(TrackPipeline):
         start, tic = time.time(), time.perf_counter()
         v1, v2 = self.video, self.video2
         t0 = max(v2.counter - 2, 0)
-        with v1.get_lock(), after_tracker_writes(self._stream):
+        with v1.get_lock(), after_tracker_writes(self._stream, v1.device):
             t1 = v1.counter if is_last else v1.counter - 5
             if t1 <= t0:
                 return None
-            poses1 = v1.poses[:t1].clone()
-            frames = v1.read_frames(t0, t1)
+            poses1 = v1.poses[:t1].to(v2.device, copy=True)
+            frames = {k: x.to(v2.device) if torch.is_tensor(x) else x
+                      for k, x in v1.read_frames(t0, t1).items()}
         dG, s = merge_frames(v2, t0, poses1, frames)
         edges = self.backend(self.backend_iters, normalize=False)
         if self._stream is not None:
@@ -187,6 +206,8 @@ class DroidAsync(TrackPipeline):
         else:
             traj = self.video2.poses[:self.video2.counter].cpu()
         self._sync()
+        if self.video2.device != self.device:
+            torch.cuda.synchronize(self.video2.device)
         out = se3.inv(se3.normalize(traj)).numpy()
         self.terminate_stats = dict(
             backend_cycles=cycles, final_cycle_s=final_s,

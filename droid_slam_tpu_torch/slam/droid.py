@@ -68,7 +68,12 @@ class TrackPipeline:
     """The tracking half of every facade: weights, the keyframe video, the
     motion filter and the frontend, and ``track`` / ``flush``."""
 
-    def __init__(self, config: DroidConfig, device="cuda"):
+    def __init__(self, config: DroidConfig, device="cuda",
+                 edge_devices=None):
+        """device: where the video, the networks and the BA run.
+        edge_devices: with ``config.edge_parallel`` = N, the N devices of
+        the edge-parallel update (they may repeat); cuda:0..N-1 when
+        None."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{type(self).__name__}: CUDA is not "
@@ -82,7 +87,8 @@ class TrackPipeline:
                                 upsample=config.upsample)
         self.filterx = MotionFilter(self.params, self.video,
                                     thresh=config.filter_thresh)
-        self.frontend = DroidFrontend(self.params, self.video, config)
+        self.frontend = DroidFrontend(self.params, self.video, config,
+                                      edge_devices)
 
     @torch.no_grad()
     @_f32_matmuls
@@ -113,8 +119,9 @@ class TrackPipeline:
 
 
 class Droid(TrackPipeline):
-    def __init__(self, config: DroidConfig, device="cuda"):
-        super().__init__(config, device)
+    def __init__(self, config: DroidConfig, device="cuda",
+                 edge_devices=None):
+        super().__init__(config, device, edge_devices)
         self.backend = DroidBackend(self.params, self.video, config)
         self.traj_filler = PoseTrajectoryFiller(
             self.params, self.video,

@@ -17,15 +17,24 @@ import torch
 
 from ..geom import distance as gdist
 from ..lie import se3
+from ..parallel.frontend import edge_parallel_mesh
 from ..state.graph import FactorGraph
 
 
 class DroidFrontend:
-    def __init__(self, params, video, cfg):
+    def __init__(self, params, video, cfg, edge_devices=None):
+        """With ``cfg.edge_parallel`` = N the graph's updates run edge-
+        parallel over N devices (droid_slam_tpu/slam/frontend.py:55-62):
+        ``edge_devices`` when given, else cuda:0..N-1."""
         self.video = video
+        mesh = None
+        if cfg.edge_parallel:
+            mesh = edge_parallel_mesh(cfg.edge_parallel, edge_devices)
+        elif edge_devices is not None:
+            raise ValueError("edge_devices needs DroidConfig.edge_parallel")
         self.graph = FactorGraph(video, params, max_factors=48,
                                  fused_epilogue=cfg.gru_fused_epilogue,
-                                 upsample=cfg.upsample)
+                                 upsample=cfg.upsample, mesh=mesh)
         self.t1 = 0
         self.is_initialized = False
         self.max_age = 20

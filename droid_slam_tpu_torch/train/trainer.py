@@ -7,8 +7,10 @@ the batch mean that JAX's ``vmap`` takes; restarts from the detached last
 estimates add their gradients to it; then one optimizer update:
 non-finite entries zeroed -> clip by global norm -> + weight_decay * p ->
 Adam -> the one-cycle learning rate, in that order, as the JAX package's
-optax chain (``trainer.py:72-83``). Data parallelism over several GPUs is
-not ported.
+optax chain (``trainer.py:72-83``). With a data-parallel group (``dp``,
+``parallel/mesh.py``) each rank steps on its block of the global batch,
+and the gradients and metrics are averaged over the ranks before the
+update (JAX's ``pmean``, ``trainer.py:248-253``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from ..lie import se3
 from ..models import droidnet, nets
 from ..models import weights as weights_io
+from ..parallel import mesh as pmesh
 from ..slam.droid import f32_matmuls
 from . import losses
 
@@ -196,14 +199,18 @@ def batch_loss_backward(params, batch, Gs0, disps0, cfg, num_steps,
 
 
 def train_step(params, opt: Optimizer, batch, step: int, cfg: TrainConfig,
-               num_steps=None, compute_dtype=torch.bfloat16):
+               num_steps=None, compute_dtype=torch.bfloat16, dp=None):
     """One optimizer step on ``batch`` (tensors on the params' device:
     images [B,N,H,W,3] uint8, poses [B,N,7] world-to-camera, disps
     [B,N,H,W], intrinsics [B,N,4], ii/jj [E]). The unroll runs once, then
     again from its detached finals while a draw from a generator seeded by
-    ``step`` falls under ``cfg.restart_prob``, at most MAX_RESTARTS runs in
-    all. Returns the metrics of the last run as floats, with
-    ``grad_nanfrac`` and ``restarts`` (runs after the first)."""
+    ``step`` (the same on every rank) falls under ``cfg.restart_prob``, at
+    most MAX_RESTARTS runs in all. With ``dp`` (a
+    ``parallel.mesh.DataParallel``) ``batch`` is this rank's block, and the
+    gradients and then the metrics are averaged over the ranks before the
+    update; ``grad_nanfrac`` reads the averaged gradients. Returns the
+    metrics of the last run as floats, with ``grad_nanfrac`` and
+    ``restarts`` (runs after the first)."""
     num_steps = num_steps or cfg.iters
     gen = torch.Generator().manual_seed(int(step))
     inits = [default_init(P, d) for P, d in zip(batch["poses"],
@@ -223,6 +230,11 @@ def train_step(params, opt: Optimizer, batch, step: int, cfg: TrainConfig,
                 break
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
+        if dp is not None:
+            grads = dict(zip(grads, pmesh.all_reduce_mean(grads.values(),
+                                                          dp)))
+            metrics = dict(zip(metrics, pmesh.all_reduce_mean(
+                metrics.values(), dp)))
         nanfrac = opt.step(grads)
     out = {k: float(v) for k, v in metrics.items()}
     out["grad_nanfrac"] = nanfrac

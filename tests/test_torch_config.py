@@ -20,8 +20,9 @@ from droid_slam_tpu_torch.models import weights as tweights
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "r5_006000.npz")
-# JAX fields of modes the port does not run: the edge-parallel frontend
-JAX_ONLY = {"edge_parallel"}
+# JAX fields of modes the port does not run: none since the edge-parallel
+# frontend (parallel/frontend.py)
+JAX_ONLY = set()
 PORT_ONLY = {"gru_fused_epilogue"}
 
 
@@ -45,6 +46,15 @@ def test_presets_equal_jax_field_by_field(name):
     for k in set(jf) & set(tf):
         assert tf[k] == jf[k], (name, k)
     assert tf["gru_fused_epilogue"] is False
+
+
+def test_edge_parallel_defaults_to_serial_as_jax():
+    from droid_slam_tpu import config as jconfig
+
+    assert tconfig.DroidConfig().edge_parallel \
+        == jconfig.DroidConfig().edge_parallel == 0
+    for name, cfg in tconfig.PRESETS.items():
+        assert cfg.edge_parallel == jconfig.PRESETS[name].edge_parallel
 
 
 def test_scale_factors_equal_jax():

@@ -52,7 +52,8 @@ def test_every_module_imports_without_jax():
               "data.factory", "data.synthetic", "data.fixtures",
               "data.stream", "geom.filters", "eval.kitti",
               "eval.visualization", "eval.viewer", "utils.timer",
-              "utils.device"):
+              "utils.device", "parallel", "parallel.mesh",
+              "parallel.frontend", "parallel.backend"):
         assert "droid_slam_tpu_torch." + m in mods
     code = (
         "import importlib, sys, runpy\n"

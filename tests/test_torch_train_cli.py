@@ -1,6 +1,6 @@
 """train_torch.py end to end on the CPU: the TartanAir fixture and the
 synthetic scenes, its weights read back by the JAX package, its state
-resumed, and its refusal of several devices.
+resumed, and its refusal of more devices than the machine has cards.
 
 Each run goes in a subprocess from a temporary directory, where it writes
 ``checkpoints/``; ``--iters 2 --batch 1`` keeps the unroll small.
@@ -85,8 +85,23 @@ def test_train_cli_synthetic_resumes_from_its_state(tmp_path):
 
 
 def test_train_cli_refuses_several_devices(tmp_path):
-    out = _run(tmp_path, "--datasets", "synthetic", "--device", "cpu",
-               "--devices", "2", timeout=120)
+    """--devices 2 on CUDA with one card raises before any work (the
+    machine's CUDA faked present with one card), as does a batch that does
+    not divide over the ranks."""
+    code = ("import sys, runpy, torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            "torch.cuda.device_count = lambda: 1\n"
+            f"sys.argv = [{os.path.join(REPO, 'train_torch.py')!r}, "
+            "'--datasets', 'synthetic', '--devices', '2']\n"
+            "runpy.run_path(sys.argv[0], run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode != 0
-    assert "item 9" in out.stderr and "NotImplementedError" in out.stderr
+    assert "asks for 2 CUDA devices; this machine has 1" in out.stderr
+    out = _run(tmp_path, "--datasets", "synthetic", "--device", "cpu",
+               "--devices", "2", "--batch", "3", timeout=120)
+    assert out.returncode != 0
+    assert "does not divide over 2 ranks" in out.stderr
     assert not (tmp_path / "checkpoints").exists()

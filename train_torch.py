@@ -1,8 +1,9 @@
 """Training CLI of the PyTorch port: DroidNet on TartanAir, or on the
-synthetic box scenes, on one GPU.
+synthetic box scenes, on one GPU or data-parallel over several.
 
     python train_torch.py --datasets synthetic [--ckpt checkpoints/r5_006000.npz]
     python train_torch.py --datasets tartan --datapath datasets/TartanAir
+    python train_torch.py ... --devices 4         # 4 GPUs, one rank each
     python train_torch.py ... --device cpu        # the CPU, at small sizes
 
 The same flags as ``train.py`` (the JAX package's CLI) plus ``--device``.
@@ -14,7 +15,16 @@ steps, in the JAX package's layout; the resumable state (parameters,
 optimizer, step, the data generator) to ``checkpoints/<name>_state_*.pt``
 every ``--state_every`` steps, at the end, and before a crash propagates.
 ``--resume`` continues from such a state. Paths are relative to the working
-directory. Several GPUs (``--devices`` above 1) are not supported.
+directory.
+
+``--devices N`` trains data-parallel on N ranks (``torch.multiprocessing``
+processes; one rank runs in this process): rank r on ``cuda:r`` with NCCL,
+or with ``--device cpu`` N CPU ranks with gloo. N above the machine's card
+count raises. Every rank draws the same global batch, which must divide by
+N, and steps on its contiguous block of it; gradients and metrics are
+averaged over the ranks (``train.trainer.train_step``). Rank 0 alone logs
+and writes checkpoints. A rank that fails, or a collective that waits
+``parallel.mesh.DEFAULT_TIMEOUT_S`` for a peer, fails the run.
 """
 
 import argparse
@@ -67,7 +77,8 @@ def build_parser():
     parser.add_argument("--edges", type=int, default=24)
     parser.add_argument("--restart_prob", type=float, default=0.2)
     parser.add_argument("--devices", type=int, default=None,
-                        help="GPUs to train on: only 1 is supported")
+                        help="data-parallel ranks (GPUs, or CPU processes "
+                             "with --device cpu)")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the run (cuda or cpu)")
     parser.add_argument("--synthetic_clips", type=int, default=64,
@@ -93,20 +104,20 @@ def build_parser():
 
 
 class Run:
-    """One training run's state: parameters, optimizer, data and step."""
+    """One training run's state: parameters, optimizer, data and step; with
+    ``dp`` (a ``parallel.mesh.DataParallel``) one rank's."""
 
-    def __init__(self, args):
+    def __init__(self, args, dp=None):
         import torch
         from droid_slam_tpu_torch.models import weights as weights_io
+        from droid_slam_tpu_torch.parallel import mesh as pmesh
         from droid_slam_tpu_torch.train.trainer import (TrainConfig,
                                                         init_train_state)
 
-        if args.devices is not None and args.devices > 1:
-            raise NotImplementedError(
-                "train_torch.py trains on one GPU: data parallelism over "
-                f"{args.devices} devices is ROADMAP.md section 1 item 9")
         self.args = args
-        self.device = torch.device(args.device)
+        self.dp = dp
+        self.device = dp.device if dp is not None else torch.device(
+            args.device)
         self.cfg = TrainConfig(
             lr=args.lr, steps=args.steps, iters=args.iters, clip=args.clip,
             n_frames=args.n_frames, w1=args.w1, w2=args.w2, w3=args.w3,
@@ -127,6 +138,8 @@ class Run:
             params = weights_io.load(args.ckpt, "cpu") if args.ckpt else None
         self.params, self.opt = init_train_state(self.cfg, params=params,
                                                  device=self.device)
+        if dp is not None:
+            pmesh.replicate(self.params.values(), dp)
         if state is not None:
             self.opt.load_state_dict(state)
         self.db = self._dataset()
@@ -151,10 +164,12 @@ class Run:
                          cache_dir=os.path.join(a.datapath, ".index_cache"))
 
     def next_batch(self):
-        """The next batch as tensors on the run's device."""
+        """The next batch as tensors on the run's device: with ``dp``, this
+        rank's block of the global batch, which every rank draws alike."""
         import torch
         from droid_slam_tpu_torch.data.graph_utils import (
             build_frame_graph, graph_to_edge_list)
+        from droid_slam_tpu_torch.parallel.mesh import shard_batch
 
         a, N = self.args, self.args.n_frames
         idx = self.rng.integers(0, len(self.db), size=a.batch)
@@ -173,13 +188,15 @@ class Run:
                      for i in range(N)}
         ii, jj, _ = graph_to_edge_list(graph)
         batch = collate(samples, ii, jj)
+        if self.dp is not None:
+            batch = shard_batch(batch, self.dp)
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
     def step(self, batch):
         from droid_slam_tpu_torch.train.trainer import train_step
         metrics = train_step(self.params, self.opt, batch, self.total_steps,
-                             self.cfg)
+                             self.cfg, dp=self.dp)
         self.total_steps += 1
         return metrics
 
@@ -194,16 +211,13 @@ class Run:
                                     self.rng.bit_generator.state)
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    import torch
-    if torch.device(args.device).type == "cuda" \
-            and not torch.cuda.is_available():
-        raise SystemExit("train_torch.py: CUDA is not available; pass "
-                         "--device cpu to train on the CPU")
+def train(args, dp=None):
+    """The training loop; with ``dp``, one rank's (rank 0 logs and writes
+    the checkpoints)."""
     from droid_slam_tpu_torch.train.logger import Logger
 
-    run = Run(args)
+    run = Run(args, dp)
+    lead = dp is None or dp.rank == 0
     logger = Logger(args.name, total_steps=run.total_steps)
     os.makedirs("checkpoints", exist_ok=True)
     state_path = f"checkpoints/{args.name}_state_{{}}.pt"
@@ -215,12 +229,15 @@ def main(argv=None):
         except Exception:
             # keep a resumable state before the failure propagates
             try:
-                run.save_state(state_path.format("crash"))
-                print(f"saved crash state at step {run.total_steps}",
-                      flush=True)
+                if lead:
+                    run.save_state(state_path.format("crash"))
+                    print(f"saved crash state at step {run.total_steps}",
+                          flush=True)
             except Exception:
                 pass
             raise
+        if not lead:
+            continue
         logger.push(metrics)
         n = run.total_steps
         if n <= 5 or n % args.log_every == 0:
@@ -235,8 +252,63 @@ def main(argv=None):
         if n % args.state_every == 0:
             run.save_state(state_path.format("latest"))
 
-    run.save_npz(f"checkpoints/{args.name}_final.npz")
-    run.save_state(state_path.format("final"))
+    if lead:
+        run.save_npz(f"checkpoints/{args.name}_final.npz")
+        run.save_state(state_path.format("final"))
+
+
+def rank_plan(args):
+    """(devices, backend) of ``--devices N``: cuda:0..N-1 with NCCL, which
+    raises when the machine has fewer cards, or N CPU ranks with gloo."""
+    import torch
+    from droid_slam_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    if torch.device(args.device).type == "cuda":
+        return data_parallel_mesh(args.devices).devices, "nccl"
+    return [torch.device("cpu")] * args.devices, "gloo"
+
+
+def run_ranks(args, devices, backend):
+    """Train on ``len(devices)`` ranks, rank r on devices[r] (they may
+    repeat): rank 0 in this process when it is the only one, else one
+    spawned process each. A rank's failure raises here."""
+    import torch.multiprocessing as mp
+    from droid_slam_tpu_torch.parallel.mesh import free_port
+
+    if args.batch % len(devices):
+        raise ValueError(f"--batch {args.batch} does not divide over "
+                         f"{len(devices)} ranks")
+    init = f"tcp://localhost:{free_port()}"
+    rank_args = (args, list(devices), backend, init)
+    if len(devices) == 1:
+        rank_main(0, *rank_args)
+    else:
+        mp.spawn(rank_main, args=rank_args, nprocs=len(devices), join=True)
+
+
+def rank_main(rank, args, devices, backend, init_method):
+    """One rank of ``run_ranks``: join the group, train, leave."""
+    from droid_slam_tpu_torch.parallel import mesh as pmesh
+
+    dp = pmesh.init_data_parallel(rank, len(devices), backend, devices[rank],
+                                  init_method=init_method)
+    try:
+        train(args, dp)
+    finally:
+        pmesh.shutdown_data_parallel()
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    import torch
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        raise SystemExit("train_torch.py: CUDA is not available; pass "
+                         "--device cpu to train on the CPU")
+    if args.devices is None:
+        train(args)
+    else:
+        run_ranks(args, *rank_plan(args))
 
 
 if __name__ == "__main__":
