@@ -10,23 +10,42 @@ with the trained weights:
 
   track         monocular ``Droid.track()`` at 320x512 in the default
                 configuration (corr lookup kernel; the GRU's plain
-                epilogues);
+                epilogues), on the strict path (``fused_frame=False``, as
+                this phase, track_fused and track_edge_parallel ran before
+                the frame path existed);
   track_fused   the same frames with ``gru_fused_epilogue=True`` (all three
                 kernels), 2 of its frames profiled;
   terminate     ``terminate(stream=...)`` on the track_fused instance: two
                 global-BA passes (7 and 12 steps) and the trajectory filler
                 over the bench's filler stream (GRU epilogues and lookup);
-  track_stereo  EuRoC stereo: the euroc preset at 320x512 with
+  track_frame   the frame path (``slam/fused_frame.py``: two frame programs
+                a frame, replayed as CUDA graphs) on track_fused's frames
+                and configuration: strict-frame and speculative runs timed
+                (2 speculative frames profiled), then, with deterministic
+                kernels, the speculative programs replayed against the
+                same programs run eagerly on the card, held to
+                FRAME_GRAPH_TOL, all three kernels launched inside the
+                graphs. track_stereo, track_rgbd, evaluate and
+                track_async_process_frame take the CUDA default (the frame
+                path, without speculation) and print which path ran; the
+                ``_strict`` phases, the other asynchronous phases
+                (ASYNC_FUSED_FRAME) and track_edge_parallel the strict one;
+  track_stereo, track_stereo_strict
+                EuRoC stereo: the euroc preset at 320x512 with
                 ``stereo=True`` and ``gru_fused_epilogue=True``, then
                 ``terminate()`` with the filler on the stereo stacks; the
-                graph must hold stereo (i, i) edges;
-  track_rgbd    TUM RGB-D: the tum preset at 240x320 with a depth map per
+                graph must hold stereo (i, i) edges; on the frame path,
+                then on the strict path (``fused_frame=False``);
+  track_rgbd, track_rgbd_strict
+                TUM RGB-D: the tum preset at 240x320 with a depth map per
                 frame and ``upsample=True`` (default epilogues), then
                 ``terminate()``; the keyframes must carry sensor
-                disparities and full-resolution ``disps_up``;
+                disparities and full-resolution ``disps_up``; on both
+                paths, as stereo;
   evaluate      evaluation_scripts/test_synthetic_torch.py's ``run`` at its
                 defaults (the tartanair preset at 320x512, 120 synthetic
-                frames, seed 7, buffer 256): tracking, ``terminate()``, and
+                frames, seed 7, buffer 256; the frame path): tracking,
+                ``terminate()``, and
                 the ATE to the exact ground truth within EVAL_ATE_BOUND;
                 then the reconstruction of its final video:
                 ``depth_filter`` and ``iproj_points`` on the card against
@@ -48,7 +67,12 @@ with the trained weights:
                 from the inputs each merged, to REPLAY_POSE_TOL, where a
                 replay with no BA step must not; its ATE to the
                 reference's trajectory is printed. These phases run
-                PyTorch's deterministic kernels.
+                PyTorch's deterministic kernels;
+  track_async_process_frame
+                ``DroidAsyncProcess`` as above on the frame path (graph
+                replays): its backend's cycles before ``terminate()`` are
+                printed, not held (the faster tracker may outrun them); it
+                must run a cycle, and its replay is held as above.
   train         train_torch.py's Run at its published configuration
                 (TRAIN_ARGV: synthetic clips at 384x512, 7 frames, 24
                 edges, 15 iterations, batch 4, bf16, restarts at 0.2) from
@@ -134,7 +158,12 @@ import time
 
 sys.dont_write_bytecode = True  # the run writes nothing but the kernel build
 
-DEADLINE_S = 600
+# the script's own deadline, a guard against a hang: the run read 385-501 s
+# before the strict stereo and RGB-D runs and the process facade on the
+# frame path came, 648 s with them, and its host-bound phases vary by ~20%
+# between calls (NVIDIA H100 80GB HBM3, 700 W); the run must end within
+# 1200 s
+DEADLINE_S = 900
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "checkpoints", "r5_006000.npz")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -156,12 +185,23 @@ STEREO_SHIFT = 48
 RGBD_SIZE = (240, 320)         # the tum preset's image size
 # the asynchronous phases: enough frames at 320x512 for the backend, which
 # starts after 32 keyframes, to run at least 2 cycles of ASYNC_ITERS global-BA
-# steps before terminate(), with ASYNC_SLEEP s between cycles: 96 (128
-# until the evaluate phase came; cut to keep the script inside its
-# deadline). In a 128-frame run 7 of the thread's cycles and 5 of the
-# process's had read no keyframe past the 96th; at 80 frames the process
-# ran 1 cycle before terminate() (NVIDIA H100 80GB HBM3, 700 W)
-N_ASYNC, ASYNC_BUFFER, ASYNC_SLEEP, ASYNC_ITERS = 96, 160, 1.0, 8
+# steps before terminate(), with ASYNC_SLEEP s between cycles: 88 frames
+# of cycles of 4 steps (128 frames until the evaluate phase came, 96 of
+# 8 steps until the track_frame phase came; cut to keep the script inside
+# its deadline: the three phases took 183 and 243 s of two 96-frame calls,
+# the second call ran past 600 s). In a 128-frame run 7 of the thread's
+# cycles and 5 of the process's had read no keyframe past the 96th; at 80
+# frames of 8 steps the process ran 1 cycle before terminate(), at 72 of 4
+# steps 2, the thread 4 (NVIDIA H100 80GB HBM3, 700 W)
+N_ASYNC, ASYNC_BUFFER, ASYNC_SLEEP, ASYNC_ITERS = 88, 160, 1.0, 4
+# the asynchronous phases that hold 2 backend cycles before terminate()
+# track on the strict path: on the frame path the tracker outran the thread
+# facade's backend (96 frames tracked while it ran 1 of its 3 cycles; its
+# replay held exactly), so 2 cycles would need other frame counts and
+# sleeps than the earlier records of these phases (NVIDIA H100 80GB HBM3,
+# 700 W; ROADMAP.md §1 item 11). track_async_process_frame runs the
+# process facade on the CUDA default, the frame path, and prints its cycles
+ASYNC_FUSED_FRAME = False
 # bound on the largest gap between an asynchronous facade's backend poses
 # (after its last cycle) and those of the same cycles replayed by hand from
 # the inputs each merged (``_replay``). With PyTorch's deterministic kernels
@@ -170,6 +210,19 @@ N_ASYNC, ASYNC_BUFFER, ASYNC_SLEEP, ASYNC_ITERS = 96, 160, 1.0, 8
 # (NVIDIA H100 80GB HBM3, 700 W); the bound admits f32 rounding of poses
 # of size ~10 and nothing more
 REPLAY_POSE_TOL = 1e-5
+# the track_frame phase: bound on the largest pose and disparity gap of the
+# frame programs replayed as CUDA graphs against the same programs run
+# eagerly on the card, both with deterministic kernels: the same kernels
+# on the same inputs, so 0
+FRAME_GRAPH_TOL = 0.0
+# the frame path's timed runs warm up over more frames than the others:
+# its graphs are captured as the sticky sizes grow (the probe's pairs at
+# the 3rd frame-path frame, a frame's new edges at the 8th, the inactive
+# edges at the 14th, at 64x96 on the CPU)
+FRAME_WARM = 24
+# the held pair's frames: 13 on the frame path, 4 of them capturing (the
+# last at the 13th) and 9 replayed
+FRAME_HELD = 22
 # the plane's disparity 1/depth, which the sensor (RGB-D) or the fixed
 # stereo baseline determines: the tracked median disparity must land within
 # this factor of it
@@ -681,27 +734,38 @@ def _require_launches(counts, names, phase):
 
 
 def profile_frames(fn, frame_ms):
-    """Device time of fn() by kernel (torch.profiler): per frame, its share
-    of the un-profiled frame time ``frame_ms`` (the profiler slows the host,
-    not the kernels), the lookup kernel's part and the five largest."""
+    """Device time of fn() by kernel (torch.profiler), per frame: the idle
+    share of the profiled frames' own wall time (``idle_share``; the
+    profiler slows the host, not the kernels, so this is an upper bound),
+    beside the share of the mean un-profiled frame time ``frame_ms`` of
+    the frames before (``idle_share_vs_unprofiled``, the script's earlier
+    reading: another window of frames, so it may even go negative), the
+    lookup kernel's part and the five largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tic) * 1e3 / N_PROF
     dev = _device_ms(prof)[0]
     per_frame = sum(dev.values()) / N_PROF
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
     part = lambda key: sum(v for k, v in dev.items() if key in k) / N_PROF
-    emit(phase="profile", frames=N_PROF, frame_ms=frame_ms,
-         device_ms_per_frame=per_frame, idle_share=1.0 - per_frame / frame_ms,
-         lookup_ms_per_frame=part("corr_lookup"),
-         gru_epilogue_a_ms_per_frame=part("epilogue_a_kernel"),
-         gru_epilogue_b_ms_per_frame=part("epilogue_b_kernel"),
-         top_ms_per_frame=[[k[:48], round(v / N_PROF, 3)] for k, v in top])
+    rec = dict(frames=N_PROF, frame_ms=frame_ms,
+               profiled_frame_ms=wall_ms, device_ms_per_frame=per_frame,
+               idle_share=1.0 - per_frame / wall_ms,
+               idle_share_vs_unprofiled=1.0 - per_frame / frame_ms,
+               lookup_ms_per_frame=part("corr_lookup"),
+               gru_epilogue_a_ms_per_frame=part("epilogue_a_kernel"),
+               gru_epilogue_b_ms_per_frame=part("epilogue_b_kernel"),
+               top_ms_per_frame=[[k[:48], round(v / N_PROF, 3)]
+                                 for k, v in top])
+    emit(phase="profile", **rec)
+    return rec
 
 
 def _frame(base, t):
@@ -730,7 +794,7 @@ def run_track(dev, fused, profile):
                       filter_thresh=-1.0, keyframe_thresh=-1.0,
                       frontend_window=20, frontend_thresh=17.5,
                       frontend_radius=2, frontend_nms=1, weights=CKPT,
-                      gru_fused_epilogue=fused)
+                      gru_fused_epilogue=fused, fused_frame=False)
     torch.cuda.reset_peak_memory_stats()
     droid = Droid(cfg, device=dev)
     rng = np.random.default_rng(0)
@@ -778,7 +842,145 @@ def run_track(dev, fused, profile):
     if n != t_end or tuple(disps.shape) != (n, H // 8, W // 8):
         raise AssertionError(f"expected {t_end} keyframes of "
                              f"{H // 8}x{W // 8}, got {tuple(disps.shape)}")
-    return droid, base, intr, counts
+    return droid, base, intr, counts, kf_timed / elapsed
+
+
+def _path_of(droid):
+    """Which tracking path a tracker took, and its frame programs'
+    counters."""
+    fp = droid.frame_programs
+    if fp is None:
+        return {"path": "strict"}
+    return {"path": "frame+spec" if droid._spec_frame else "frame",
+            "graphs": fp.graphs, "captures": fp.captures,
+            "capture_s": fp.capture_s, "pool_gib": fp.pool_bytes / 2 ** 30,
+            "replays": fp.replays, "eager_frames": fp.eager,
+            "spec_mis": droid.spec_mis, "strict_reruns": droid.strict_reruns,
+            "spec_dist_miss": droid.spec_dist_miss}
+
+
+def run_track_frame(dev, base, intr, strict_kf_per_s):
+    """The frame path (``slam/fused_frame.py``) at 320x512 on track_fused's
+    rolled-noise frames with the fused epilogues. Timed, with PyTorch's
+    default kernels as track_fused: strict-frame (``spec_frame=False``)
+    and speculative, as CUDA graph replays, over N_TIMED frames after
+    FRAME_WARM (the graphs' captures fall in the warm-up: ``capture_at``),
+    the speculative run with N_PROF more frames profiled. Held, with
+    deterministic kernels on FRAME_HELD frames: the
+    speculative programs replayed as graphs against the same programs run
+    eagerly on the card (equal keyframes and edges, poses and disparities
+    to FRAME_GRAPH_TOL, the same mis-speculations and strict re-runs), and
+    every kernel launched inside the replayed graphs. Printed: kf/s of the
+    strict path (track_fused's run, ``strict_kf_per_s``), strict-frame and
+    spec; the device's idle share of the profiled frames; captures, their
+    seconds and the pool's GiB. Returns the launch counts of the held
+    replayed run."""
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.config import DroidConfig
+    from droid_slam_tpu_torch.slam.droid import Droid
+
+    def track(spec, graphs=True, profile=False, timed=True):
+        warm = FRAME_WARM if timed else N_WARM
+        n_frames = warm + N_TIMED + N_PROF if timed else FRAME_HELD
+        cfg = DroidConfig(buffer=64, image_size=(H, W), warmup=8,
+                          filter_thresh=-1.0, keyframe_thresh=-1.0,
+                          frontend_window=20, frontend_thresh=17.5,
+                          frontend_radius=2, frontend_nms=1, weights=CKPT,
+                          gru_fused_epilogue=True, fused_frame=True,
+                          spec_frame=spec)
+        torch.cuda.reset_peak_memory_stats()
+        droid = Droid(cfg, device=dev)
+        droid.frame_programs.graphs = graphs
+        droid.frame_programs.sync_debug = "error"   # a hidden sync raises
+        _reset_counts()
+        rec, stamps = {}, []
+        for t in range(n_frames):
+            if t == warm:
+                torch.cuda.synchronize()
+                tic, kf0 = time.perf_counter(), droid.video.counter
+            if t == warm + N_TIMED:
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - tic
+                rec["kf_per_s"] = (droid.video.counter - kf0) / elapsed
+                rec["frame_ms"] = list(np.diff([tic] + stamps) * 1e3)
+                if profile:
+                    rec["profile"] = profile_frames(
+                        lambda: [droid.track(float(k), _frame(base, k),
+                                             intrinsics=intr)
+                                 for k in range(t, n_frames)],
+                        frame_ms=elapsed * 1e3 / N_TIMED)
+                    break
+            droid.track(float(t), _frame(base, t), intrinsics=intr)
+            if warm <= t < warm + N_TIMED:
+                stamps.append(time.perf_counter())
+        droid.flush()
+        torch.cuda.synchronize()
+        n, g = droid.video.counter, droid.frontend.graph
+        rec.update(counts=_counts(), keyframes=n, frames=n_frames,
+                   capture_at=list(droid.frame_programs.capture_at),
+                   edges=sorted(zip(g.ii.tolist(), g.jj.tolist())),
+                   poses=droid.video.poses[:n].cpu(),
+                   disps=droid.video.disps[:n].cpu(),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   replayed=list(droid.frame_programs.replayed_launches),
+                   **_path_of(droid))
+        del droid
+        torch.cuda.empty_cache()
+        return rec
+
+    plain = track(spec=False)
+    timed = track(spec=True, profile=True)
+    torch.use_deterministic_algorithms(True)
+    try:
+        spec = track(spec=True, timed=False)
+        eager = track(spec=True, graphs=False, timed=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = spec["edges"] == eager["edges"] and \
+        spec["keyframes"] == eager["keyframes"]
+    gap = {"pose": float((spec["poses"] - eager["poses"]).abs().max()),
+           "disp": float((spec["disps"] - eager["disps"]).abs().max())} \
+        if same else None
+    finite = all(bool(torch.isfinite(r[k]).all()) for r in (plain, timed, spec)
+                 for k in ("poses", "disps"))
+    names = ("corr_lookup", "gru_epilogue_a", "gru_epilogue_b")
+    replayed = dict(zip(names, spec["replayed"]))
+    keep = ("kf_per_s", "frame_ms", "frames", "keyframes", "peak_mem_gb",
+            "path", "captures", "capture_at", "capture_s", "pool_gib",
+            "replays", "eager_frames", "spec_mis", "strict_reruns",
+            "spec_dist_miss", "counts")
+    emit(phase="track_frame", weights=os.path.basename(CKPT),
+         timed_frames=N_TIMED, strict_kf_per_s=strict_kf_per_s,
+         strict_frame={k: plain[k] for k in keep if k in plain},
+         spec={k: timed[k] for k in keep if k in timed},
+         held_deterministic={"replayed": {k: spec[k] for k in keep
+                                          if k in spec},
+                             "eager": {k: eager[k] for k in keep
+                                       if k in eager}},
+         idle_share=timed["profile"]["idle_share"],
+         device_ms_per_frame=timed["profile"]["device_ms_per_frame"],
+         profiled_frame_ms=timed["profile"]["profiled_frame_ms"],
+         edges=len(spec["edges"]), replayed_launches=replayed,
+         graphs_vs_eager={"same_keyframes_and_edges": same, "gap": gap},
+         spec_vs_strict_frame_edges_equal=timed["edges"] == plain["edges"],
+         finite=finite)
+    _require_launches(spec["counts"], list(names), "track_frame")
+    _require_launches(replayed, list(names), "track_frame (graph replays)")
+    if not (finite and same and spec["replays"] > 0
+            and eager["replays"] == 0):
+        raise AssertionError(f"track_frame: finite={finite}, replays "
+                             f"{spec['replays']}, the replayed run's "
+                             f"keyframes or edges differ from the eager "
+                             f"run's: {same}")
+    if not (gap["pose"] <= FRAME_GRAPH_TOL and
+            gap["disp"] <= FRAME_GRAPH_TOL):
+        raise AssertionError(f"track_frame: replayed against eager {gap}")
+    if (spec["spec_mis"], spec["strict_reruns"]) != \
+            (eager["spec_mis"], eager["strict_reruns"]):
+        raise AssertionError("track_frame: the replayed and the eager run "
+                             "speculated differently")
+    return spec["counts"]
 
 
 def _track_gaps(got, ref):
@@ -864,7 +1066,7 @@ def run_track_edge_parallel(dev, base, intr):
                           filter_thresh=-1.0, keyframe_thresh=-1.0,
                           frontend_window=20, frontend_thresh=17.5,
                           frontend_radius=2, frontend_nms=1, weights=CKPT,
-                          gru_fused_epilogue=True,
+                          gru_fused_epilogue=True, fused_frame=False,
                           edge_parallel=len(edge_devices or ()))
         torch.cuda.reset_peak_memory_stats()
         droid = Droid(cfg, device=dev, edge_devices=edge_devices)
@@ -1044,9 +1246,11 @@ def _stereo_frame(base, t):
     return np.stack([left, np.roll(left, -STEREO_SHIFT, axis=1)])
 
 
-def run_mode(dev, mode):
+def run_mode(dev, mode, fused_frame=None):
     """Stereo or RGB-D tracking from a preset, then terminate(), with the
-    launch counts set to 0 before and read after. Returns the counts."""
+    launch counts set to 0 before and read after; ``fused_frame`` None
+    takes the CUDA default (the frame path), False the strict path (phase
+    ``track_{mode}_strict``). Returns the counts."""
     import dataclasses
 
     import numpy as np
@@ -1060,7 +1264,8 @@ def run_mode(dev, mode):
         PRESETS[preset], image_size=(h, w), buffer=64, warmup=8,
         filter_thresh=-1.0, keyframe_thresh=-1.0, weights=CKPT,
         stereo=stereo, depth=not stereo, upsample=not stereo,
-        gru_fused_epilogue=stereo)
+        gru_fused_epilogue=stereo, fused_frame=fused_frame)
+    phase = f"track_{mode}" + ("_strict" if fused_frame is False else "")
     intr = _intrinsics(h, w)
     plane = float(intr[0]) * 0.1 / STEREO_SHIFT     # depth of the plane
     rng = np.random.default_rng(0)
@@ -1102,7 +1307,7 @@ def run_mode(dev, mode):
     up_shape = None if v.disps_up is None else [n, h, w]
     up_finite = v.disps_up is not None and \
         bool(torch.isfinite(v.disps_up[:n]).all())
-    emit(phase=f"track_{mode}", preset=preset, image_size=[h, w],
+    emit(phase=phase, preset=preset, image_size=[h, w],
          weights=os.path.basename(CKPT), frames=N_WARM + N_TIMED,
          keyframes=n, timed_frames=N_TIMED, timed_keyframes=kf_timed,
          timed_s=elapsed, kf_per_s=kf_timed / elapsed, edges=edges,
@@ -1111,28 +1316,32 @@ def run_mode(dev, mode):
          median_disp_terminated=float(v.disps[:n].median()),
          disps_up_shape=up_shape, disps_up_finite=up_finite,
          terminate_stats=st, traj_shape=list(traj.shape), finite=finite,
-         launches=counts,
+         launches=counts, **_path_of(droid),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     need = ["corr_lookup"] + (["gru_epilogue_a", "gru_epilogue_b"]
                               if stereo else [])
-    _require_launches(counts, need, f"track_{mode}")
+    _require_launches(counts, need, phase)
     if not stereo and (counts["gru_epilogue_a"] or counts["gru_epilogue_b"]):
         raise AssertionError(f"the default configuration launched the GRU "
                              f"epilogue kernels: {counts}")
     if not finite or traj.shape != ((n + 1) // 2, 7):
-        raise AssertionError(f"track_{mode}: terminate returned "
+        raise AssertionError(f"{phase}: terminate returned "
                              f"{traj.shape}, finite={finite}")
     if n != N_WARM + N_TIMED or not all(e > 0 for e in st["backend_edges"]):
-        raise AssertionError(f"track_{mode}: {n} keyframes, backend edges "
+        raise AssertionError(f"{phase}: {n} keyframes, backend edges "
                              f"{st['backend_edges']}")
+    path = _path_of(droid)
+    if path["path"] != ("strict" if fused_frame is False else "frame") or \
+            (fused_frame is None and not path["replays"]):
+        raise AssertionError(f"{phase}: tracked on {path}")
     if stereo and stereo_edges == 0:
-        raise AssertionError(f"track_stereo: no (i, i) edges among {edges}")
+        raise AssertionError(f"{phase}: no (i, i) edges among {edges}")
     if not stereo and not (sens_share > 0.9 and up_finite
                            and tuple(v.disps_up[:n].shape) == (n, h, w)):
-        raise AssertionError(f"track_rgbd: sensor share {sens_share}, "
+        raise AssertionError(f"{phase}: sensor share {sens_share}, "
                              f"disps_up finite={up_finite}")
     if not abs(np.log(track_disp * plane)) <= np.log(PLANE_DISP_TOL):
-        raise AssertionError(f"track_{mode}: median disparity {track_disp} "
+        raise AssertionError(f"{phase}: median disparity {track_disp} "
                              f"is not within {PLANE_DISP_TOL}x of the "
                              f"plane's {1.0 / plane}")
     del droid
@@ -1288,7 +1497,7 @@ def _replay_check(droid, kind, rec):
         bound=REPLAY_POSE_TOL)
 
 
-def run_async(dev, kind, ref_traj=None):
+def run_async(dev, kind, ref_traj=None, fused_frame=ASYNC_FUSED_FRAME):
     """``make_droid`` with the bench's thresholds at 320x512 on the
     sliding scene (``_slide_frame``), fused epilogues, N_ASYNC frames, then
     ``terminate(stream)``. kind:
@@ -1299,7 +1508,11 @@ def run_async(dev, kind, ref_traj=None):
     read after each. An asynchronous facade's backend poses must match its
     cycles replayed by hand (``_replay_check``) to REPLAY_POSE_TOL, where a
     replay with no BA step must not; its ATE to the reference trajectory is
-    printed. Returns (trajectory, counts)."""
+    printed. With ``fused_frame`` None (the CUDA default: the frame path)
+    the phase is ``{phase}_frame``; there the backend's cycles before
+    terminate() are printed and not held (the frame path's tracker may
+    outrun them), and its replay is held when it ran a cycle. Returns
+    (trajectory, counts)."""
     import numpy as np
     import torch
     from droid_slam_tpu_torch.config import DroidConfig
@@ -1307,11 +1520,13 @@ def run_async(dev, kind, ref_traj=None):
 
     phase = {"sync": "track_async_ref", "thread": "track_async",
              "process": "track_async_process"}[kind]
+    phase += "_frame" if fused_frame is None else ""
     cfg = DroidConfig(buffer=ASYNC_BUFFER, image_size=(H, W), warmup=8,
                       filter_thresh=-1.0, keyframe_thresh=-1.0,
                       frontend_window=20, frontend_thresh=17.5,
                       frontend_radius=2, frontend_nms=1, weights=CKPT,
-                      gru_fused_epilogue=True, asynchronous=kind != "sync")
+                      gru_fused_epilogue=True, asynchronous=kind != "sync",
+                      fused_frame=fused_frame)
     kw = {} if kind == "sync" else dict(sleep_time=ASYNC_SLEEP,
                                         backend_iters=ASYNC_ITERS)
     rng = np.random.default_rng(0)
@@ -1383,7 +1598,8 @@ def run_async(dev, kind, ref_traj=None):
         {k: c[k] for k in ("t0", "t1", "scale", "edges", "s")}
         for c in droid.cycles]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    replay = None if kind == "sync" else _replay_check(droid, kind, rec)
+    replay = None if kind == "sync" or not droid.cycles else \
+        _replay_check(droid, kind, rec)
     extra = {}
     if kind == "process":
         extra = dict(backend_startup_s=droid.terminate_stats["startup_s"],
@@ -1397,7 +1613,7 @@ def run_async(dev, kind, ref_traj=None):
          traj_shape=list(traj.shape), finite=finite,
          backend_has_every_keyframe=same_keyframes, rel_ate=rel_ate,
          replay=replay, launches={"track": c_track, "terminate": c_term},
-         peak_mem_gb=peak_gb, **extra)
+         peak_mem_gb=peak_gb, **_path_of(droid), **extra)
     _require_launches(c_track, list(c_track), f"{phase} (tracking)")
     _require_launches(c_term, list(c_term), f"{phase} (terminate)")
     if not finite or traj.shape != ((N_ASYNC + 1) // 2, 7):
@@ -1406,7 +1622,11 @@ def run_async(dev, kind, ref_traj=None):
     if not same_keyframes:
         raise AssertionError(f"{phase}: the backend's keyframes differ from "
                              f"the tracker's {n}")
-    if kind != "sync" and cycles_before < 2:
+    if fused_frame is None and droid.frame_programs.replays == 0:
+        raise AssertionError(f"{phase}: no frame was a graph replay")
+    if kind != "sync" and fused_frame is None and not droid.cycles:
+        raise AssertionError(f"{phase}: the backend ran no cycle")
+    if kind != "sync" and fused_frame is not None and cycles_before < 2:
         raise AssertionError(f"{phase}: the backend ran {cycles_before} "
                              f"cycles before terminate(), fewer than 2")
     if replay is not None and not (replay["pose_gap"] <= REPLAY_POSE_TOL
@@ -1981,7 +2201,7 @@ def run_evaluate(dev):
          frames=args.n_frames, image_size=[args.height, args.width],
          buffer=args.buffer, filter_thresh=args.filter_thresh,
          keyframes=report["keyframes"], track_s=report["track_s"],
-         kf_per_s=report["kf_per_s"],
+         kf_per_s=report["kf_per_s"], **_path_of(droid),
          frames_per_s=args.n_frames / report["track_s"],
          terminate_stats=st, ate_rmse=ate, ate_bound=EVAL_ATE_BOUND,
          launches=counts, peak_mem_gb=peak_gb,
@@ -2005,6 +2225,9 @@ def run_evaluate(dev):
     if total["gru_epilogue_a"] or total["gru_epilogue_b"]:
         raise AssertionError(f"the default configuration launched the GRU "
                              f"epilogue kernels: {total}")
+    if _path_of(droid)["path"] != "frame":
+        raise AssertionError(f"evaluate: tracked on {_path_of(droid)}, not "
+                             f"the CUDA default (the frame path)")
     if not ate <= EVAL_ATE_BOUND:      # false for NaN and inf too
         raise AssertionError(f"evaluate: ATE RMSE {ate} is not within "
                              f"{EVAL_ATE_BOUND}")
@@ -2061,19 +2284,24 @@ def main():
         gru = check_gru(dev)
         run_ba_global(dev)
         c_gba = run_global_ba_tum(dev)
-        droid, _, _, c_default = run_track(dev, fused=False, profile=False)
+        droid, _, _, c_default, _ = run_track(dev, fused=False,
+                                              profile=False)
         del droid
         torch.cuda.empty_cache()
-        droid, base, intr, c_track = run_track(dev, fused=True, profile=True)
+        droid, base, intr, c_track, strict_rate = run_track(
+            dev, fused=True, profile=True)
         c_term = run_terminate(droid, base, intr)
         del droid
         torch.cuda.empty_cache()
+        c_frame = run_track_frame(dev, base, intr, strict_rate)
         droid, c_ep = run_track_edge_parallel(dev, base, intr)
         c_gba_mesh = run_global_ba_mesh(droid)
         del droid
         torch.cuda.empty_cache()
         c_stereo = run_mode(dev, "stereo")
+        c_stereo_strict = run_mode(dev, "stereo", fused_frame=False)
         c_rgbd = run_mode(dev, "rgbd")
+        c_rgbd_strict = run_mode(dev, "rgbd", fused_frame=False)
         c_eval = run_evaluate(dev)
         # the asynchronous phases run PyTorch's deterministic kernels (sums
         # without atomics): the backend's cycles amplify the last bit of a
@@ -2084,6 +2312,8 @@ def main():
             ref, c_async_ref = run_async(dev, "sync")
             _, c_async = run_async(dev, "thread", ref)
             _, c_async_proc = run_async(dev, "process", ref)
+            _, c_async_proc_frame = run_async(dev, "process", ref,
+                                              fused_frame=None)
         finally:
             torch.use_deterministic_algorithms(False)
         c_train = run_train(dev)
@@ -2095,10 +2325,12 @@ def main():
 
     # launches over every path; each path's own counts beside them
     paths = {"track": c_default, "track_fused": c_track,
-             "terminate": c_term, "track_stereo": c_stereo,
-             "track_rgbd": c_rgbd, "evaluate": c_eval,
-             "track_async_ref": c_async_ref,
+             "terminate": c_term, "track_frame": c_frame,
+             "track_stereo": c_stereo, "track_stereo_strict": c_stereo_strict,
+             "track_rgbd": c_rgbd, "track_rgbd_strict": c_rgbd_strict,
+             "evaluate": c_eval, "track_async_ref": c_async_ref,
              "track_async": c_async, "track_async_process": c_async_proc,
+             "track_async_process_frame": c_async_proc_frame,
              "train": c_train, "train_parity": c_parity,
              "global_ba_tum512": c_gba, "track_edge_parallel": c_ep,
              "global_ba_mesh": c_gba_mesh, "train_dp": c_train_dp}

@@ -49,6 +49,18 @@ class DroidConfig:
     # counterpart of DROID_GRU_PALLAS=1, off by default as in JAX
     gru_fused_epilogue: bool = False
 
+    # the tracker's steady-state frame as two programs (slam/fused_frame.py;
+    # on CUDA each is a replay of a captured CUDA graph), and their
+    # speculative dispatch ahead of the previous frame's readback: the
+    # port's DROID_FUSED_FRAME and DROID_SPEC_FRAME. fused_frame None takes
+    # JAX's rule: on when the tracker runs on CUDA, off on the CPU.
+    # spec_frame None is off (JAX turns it on with the frame programs; on
+    # the card the synthetic evaluation collapsed with it, ROADMAP.md §3
+    # item 16); speculation only with the frame programs; edge_parallel
+    # turns both off (slam/droid.py::frame_path)
+    fused_frame: Optional[bool] = None
+    spec_frame: Optional[bool] = None
+
     # weights: a ``.npz`` of the JAX package's parameters, a reference-format
     # ``.pth`` state_dict, or None for a seeded random initialization
     weights: Optional[str] = None

@@ -15,6 +15,8 @@ JAX package.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -50,11 +52,18 @@ def basic_encoder(params, prefix, x, norm: bool):
     return conv2d(params, prefix + ".conv2", x)
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(device):
+    """The normalization constants, made once per device: a copy from the
+    host per call could not be captured in a CUDA graph."""
+    return (torch.tensor(_MEAN, device=device),
+            torch.tensor(_STD, device=device))
+
+
 def normalize_images(images_bgr_u8: torch.Tensor) -> torch.Tensor:
     """uint8 BGR [N,H,W,3] -> normalized RGB f32 [N,3,H,W]."""
     x = images_bgr_u8.flip(-1).float() / 255.0
-    mean = torch.tensor(_MEAN, device=x.device)
-    std = torch.tensor(_STD, device=x.device)
+    mean, std = _mean_std(x.device)
     return ((x - mean) / std).permute(0, 3, 1, 2).contiguous()
 
 

@@ -35,7 +35,9 @@ import numpy as np
 import torch
 
 from ..ba import inference as ba_inference
+from ..geom import distance as gdist
 from ..geom import projective as pops
+from ..lie import se3
 from ..models import nets
 from ..ops import corr as corr_ops
 from ..ops import corr_cuda
@@ -68,6 +70,27 @@ def target_weight(coords1, delta, weight):
     E, h, w = coords1.shape[:3]
     return ((coords1.permute(0, 3, 1, 2) + delta.float()).reshape(E, 2, h * w),
             weight.float().reshape(E, 2, h * w))
+
+
+# ---------------------------------------------------------------------------
+# the frame path's slot pool (droid_slam_tpu/state/graph.py:57-72)
+# ---------------------------------------------------------------------------
+
+ACTIVE_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256)
+WINDOW_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
+AE_BUCKET = 16  # sticky bucket of a frame's new edges
+_ADD_BUCKETS = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def _bucket(n, buckets):
+    """The smallest bucket holding n; past the table, doubling."""
+    for b in buckets:
+        if n <= b:
+            return b
+    b = buckets[-1]
+    while b < n:
+        b *= 2
+    return b
 
 
 def _edge_field(name):
@@ -176,7 +199,10 @@ class FactorGraph:
     # add / remove
     # ------------------------------------------------------------------
 
-    def add_factors(self, ii, jj, remove: bool = False):
+    def _admit_edges(self, ii, jj, remove):
+        """The edges of (ii, jj) that are new (in neither edge set, each
+        once); with ``remove``, the oldest active edges evicted to the
+        inactive store to keep ``max_factors``."""
         ii = np.asarray(ii, np.int64).reshape(-1)
         jj = np.asarray(jj, np.int64).reshape(-1)
         seen = set(zip(self.ii.tolist(), self.jj.tolist()))
@@ -187,17 +213,20 @@ class FactorGraph:
                 seen.add(e)
                 keep.append(k)
         ii, jj = ii[keep], jj[keep]
-        if len(ii) == 0:
-            return
-
         # cap on active factors: evict the oldest
-        if (self.max_factors > 0 and len(self.ii) + len(ii) > self.max_factors
-                and remove and len(self.ii)):
+        if (len(ii) and self.max_factors > 0 and remove and len(self.ii)
+                and len(self.ii) + len(ii) > self.max_factors):
             order = np.argsort(self.age, kind="stable")
             evict = order[max(self.max_factors - len(ii), 0):]
             mask = np.zeros(len(self.ii), bool)
             mask[evict] = True
             self.rm_factors(mask, store=True)
+        return ii, jj
+
+    def add_factors(self, ii, jj, remove: bool = False):
+        ii, jj = self._admit_edges(ii, jj, remove)
+        if len(ii) == 0:
+            return
 
         v = self.video
         ii_t, jj_t = self._dev(ii), self._dev(jj)
@@ -538,18 +567,23 @@ class FactorGraph:
         self.add_factors(ii[keep], jj[keep])
 
     def add_proximity_factors(self, t0=0, t1=0, rad=2, nms=2, beta=0.25,
-                              thresh=16.0, remove=False):
+                              thresh=16.0, remove=False, dist=None):
         """Greedy NMS edge proposal by frame distance; in stereo each frame
         of [t0, t) also gets its (i, i) edge (droid_slam_tpu/native/
-        plan_builder.cpp:182-193, in the same order)."""
+        plan_builder.cpp:182-193, in the same order). ``dist``: the pairs'
+        distances, already probed by the frame program (used when it has
+        one per pair)."""
         t = self.video.counter
         ix, jx = np.arange(t0, t), np.arange(t1, t)
         if len(ix) == 0 or len(jx) == 0:
             return
         ii, jj = np.meshgrid(ix, jx, indexing="ij")
         ii, jj = ii.reshape(-1), jj.reshape(-1)
-        d = self.video.distance(ii, jj, beta=beta).cpu().numpy() \
-            .astype(np.float64)
+        if dist is not None and len(dist) == len(ii):
+            d = np.asarray(dist, np.float64)
+        else:
+            d = self.video.distance(ii, jj, beta=beta).cpu().numpy() \
+                .astype(np.float64)
         d[ii - rad < jj] = np.inf
         d[d > 100] = np.inf
         cols = t - t1
@@ -588,3 +622,460 @@ class FactorGraph:
         if es:
             es = np.asarray(es, np.int64)
             self.add_factors(es[:, 0], es[:, 1], remove)
+
+
+# ---------------------------------------------------------------------------
+# the frame path: slot pool, deferred tables, the two halves of the update
+# (droid_slam_tpu/state/graph.py:179-442,639-699,793-945,1062-1188)
+# ---------------------------------------------------------------------------
+
+class SlotGraph(FactorGraph):
+    """The frontend's graph on the frame path (``slam/fused_frame.py``).
+
+    Per-edge state lives in fixed-capacity slot pools, each with one row
+    more than its capacity: the sentinel that padded and gated-off writes
+    go to. ``net_e`` [cap+1,128,h,w] bf16, ``target_e``/``weight_e``
+    [cap+1,2,HW], ``pyr_e`` (4 levels [cap+1,HW,h_l,w_l] bf16), and the
+    inactive store ``target_inac_p``/``weight_inac_p`` [icap+1,2,HW]. The
+    host keeps edge order (``ii``, ``jj``, ``age``, ``slots``) and the free
+    lists, as JAX's ``FactorGraph`` does. With ``defer`` set, moves to the
+    inactive store and new edges are queued as tables (``drain_deferred``)
+    for the frame program instead of run. The pools grow by reallocation
+    (``generation`` counts them: a captured program holds their
+    addresses); nothing else rebinds them.
+
+    ``SlotGraph.from_graph`` takes over an edge-ordered ``FactorGraph``
+    after the frontend's initialization: slot k holds edge k, as JAX's
+    ``compact()`` leaves it."""
+
+    net = property(lambda self: self.net_e[self._slots_t()])
+    target = property(lambda self: self.target_e[self._slots_t()])
+    weight = property(lambda self: self.weight_e[self._slots_t()])
+    target_inac = property(
+        lambda self: self.target_inac_p[self._dev(self.inac_slots)])
+    weight_inac = property(
+        lambda self: self.weight_inac_p[self._dev(self.inac_slots)])
+
+    @property
+    def pyramid(self):
+        return None if self.pyr_e is None else [
+            p[self._slots_t()] for p in self.pyr_e]
+
+    @classmethod
+    def from_graph(cls, g, inactive_capacity=2048, ba_inactive_bucket=192,
+                   rmax=16, window_bucket=32):
+        if g.mesh is not None:
+            raise ValueError("the frame path runs on one device")
+        self = cls.__new__(cls)
+        self.video, self.params = g.video, g.params
+        self.max_factors = g.max_factors
+        self.fused_epilogue, self.upsample = g.fused_epilogue, g.upsample
+        self.mesh, self.shard_params = None, None
+        self.h, self.w, self.levels = g.h, g.w, g.levels
+        self._edges = {}
+        n = len(g.ii)
+        self.ii, self.jj, self.age = g.ii.copy(), g.jj.copy(), g.age.copy()
+        self.ii_inac, self.jj_inac = g.ii_inac.copy(), g.jj_inac.copy()
+        self.capacity = _bucket(max(n, g.max_factors), ACTIVE_BUCKETS)
+        self.slots = np.arange(n, dtype=np.int64)
+        self.free = list(range(n, self.capacity))
+        n_inac = len(g.ii_inac)
+        icap = max(inactive_capacity, n_inac)
+        self.inac_slots = np.arange(n_inac, dtype=np.int64)
+        self.inac_free = list(range(n_inac, icap))
+        self.ba_inactive_bucket, self.rmax = ba_inactive_bucket, rmax
+        self.window_bucket = window_bucket
+        self.defer, self.ae_bucket = False, AE_BUCKET
+        self._pending_moves, self._pending_add = [], None
+        self.generation = 0
+
+        dev, hw = g.video.device, g.h * g.w
+        cap = self.capacity
+        pool = lambda rows, shape, dtype: torch.zeros(
+            (rows + 1,) + shape, dtype=dtype, device=dev)
+        self.net_e = pool(cap, (128, g.h, g.w), _BF16)
+        self.target_e = pool(cap, (2, hw), torch.float32)
+        self.weight_e = pool(cap, (2, hw), torch.float32)
+        self.pyr_e = None if not g.levels else [
+            pool(cap, (hw, g.h >> l, g.w >> l), _BF16)
+            for l in range(g.levels)]
+        self.net_e[:n] = g.net
+        self.target_e[:n] = g.target
+        self.weight_e[:n] = g.weight
+        for l in range(g.levels):
+            self.pyr_e[l][:n] = g.pyramid[l]
+        self.target_inac_p = pool(icap, (2, hw), torch.float32)
+        self.weight_inac_p = pool(icap, (2, hw), torch.float32)
+        self.target_inac_p[:n_inac] = g.target_inac
+        self.weight_inac_p[:n_inac] = g.weight_inac
+        return self
+
+    def _slots_t(self):
+        return self._dev(self.slots)
+
+    @property
+    def inactive_capacity(self):
+        return self.target_inac_p.shape[0] - 1
+
+    def pool_tensors(self):
+        """Every pool buffer (for address checks)."""
+        return [self.net_e, self.target_e, self.weight_e,
+                self.target_inac_p, self.weight_inac_p] + list(
+                    self.pyr_e or [])
+
+    # ------------------------------------------------------------------
+    # add / remove
+    # ------------------------------------------------------------------
+
+    def add_factors(self, ii, jj, remove: bool = False):
+        ii, jj = self._admit_edges(ii, jj, remove)
+        if len(ii) == 0:
+            return
+        while len(self.free) < len(ii):
+            self._grow()
+
+        k = len(ii)
+        kb = _bucket(k, _ADD_BUCKETS)
+        if self.defer:
+            while self.ae_bucket < kb:
+                self.ae_bucket *= 2
+            kb = self.ae_bucket
+        ii_p = np.zeros(kb, np.int64)
+        jj_p = np.zeros(kb, np.int64)
+        ii_p[:k], jj_p[:k] = ii, jj
+        slots = np.array([self.free.pop(0) for _ in range(k)], np.int64)
+        slots_p = np.full(kb, self.capacity, np.int64)
+        slots_p[:k] = slots
+        c = (ii_p == jj_p).astype(np.int64)
+        self.ii = np.concatenate([self.ii, ii])
+        self.jj = np.concatenate([self.jj, jj])
+        self.age = np.concatenate([self.age, np.zeros(k, np.int64)])
+        self.slots = np.concatenate([self.slots, slots])
+        if self.defer:
+            assert self._pending_add is None, "one add per frame"
+            self._pending_add = (ii_p, jj_p, c, slots_p)
+            return
+        add_edges(self, *(self._dev(a) for a in (ii_p, jj_p, c, slots_p)))
+
+    def rm_factors(self, mask, store: bool = False):
+        mask = np.asarray(mask, bool)
+        if not mask.any():
+            return
+        slots = self.slots[mask]
+        if store:
+            while len(self.inac_free) < len(slots):
+                self._grow_inactive()
+            islots = np.array([self.inac_free.pop(0) for _ in slots],
+                              np.int64)
+            if self.defer:
+                self._pending_moves.extend(zip(slots.tolist(),
+                                               islots.tolist()))
+            else:
+                move_rows(self, self._dev(slots), self._dev(islots))
+            self.ii_inac = np.concatenate([self.ii_inac, self.ii[mask]])
+            self.jj_inac = np.concatenate([self.jj_inac, self.jj[mask]])
+            self.inac_slots = np.concatenate([self.inac_slots, islots])
+        self.ii, self.jj, self.age = (self.ii[~mask], self.jj[~mask],
+                                      self.age[~mask])
+        self.slots = self.slots[~mask]
+        self.free.extend(slots.tolist())
+
+    def rm_keyframe(self, ix: int):
+        self.video.rm_keyframe(ix)
+        m = (self.ii_inac == ix) | (self.jj_inac == ix)
+        self.ii_inac = np.where(self.ii_inac >= ix, self.ii_inac - 1,
+                                self.ii_inac)
+        self.jj_inac = np.where(self.jj_inac >= ix, self.jj_inac - 1,
+                                self.jj_inac)
+        if m.any():
+            self.inac_free.extend(self.inac_slots[m].tolist())
+            self.ii_inac, self.jj_inac = self.ii_inac[~m], self.jj_inac[~m]
+            self.inac_slots = self.inac_slots[~m]
+        drop = (self.ii == ix) | (self.jj == ix)
+        self.ii = np.where(self.ii >= ix, self.ii - 1, self.ii)
+        self.jj = np.where(self.jj >= ix, self.jj - 1, self.jj)
+        self.rm_factors(drop, store=False)
+
+    def _grow(self):
+        """Double the active capacity (new buffers: a new generation)."""
+        old = self.capacity
+        new = _bucket(old + 1, ACTIVE_BUCKETS + (512, 1024, 2048))
+        grow = lambda x: torch.cat([x[:old], x.new_zeros(
+            (new - old + 1,) + x.shape[1:])])
+        self.net_e, self.target_e, self.weight_e = map(
+            grow, (self.net_e, self.target_e, self.weight_e))
+        if self.pyr_e is not None:
+            self.pyr_e = [grow(p) for p in self.pyr_e]
+        self.free.extend(range(old, new))
+        self.capacity = new
+        self.generation += 1
+
+    def _grow_inactive(self):
+        old = self.inactive_capacity
+        grow = lambda x: torch.cat([x[:old], x.new_zeros(
+            (old + 1,) + x.shape[1:])])
+        self.target_inac_p = grow(self.target_inac_p)
+        self.weight_inac_p = grow(self.weight_inac_p)
+        self.inac_free.extend(range(old, 2 * old))
+        self.generation += 1
+
+    def update(self, *args, **kwargs):
+        raise RuntimeError("a SlotGraph updates through the frame program "
+                           "(slam/fused_frame.py)")
+
+    # ------------------------------------------------------------------
+    # the frame program's tables
+    # ------------------------------------------------------------------
+
+    def bump_age(self, n):
+        """Account iterations that ran on the device."""
+        self.age = self.age + n
+
+    def update_tables(self, use_inactive=True, kf_pair=None,
+                      next_state_t1=None, sens_frame=None, itrs=2):
+        """Host half of an update: the int table vector of the frame
+        program and its static sizes (droid_slam_tpu/state/graph.py:
+        1074-1157). The active rows are in slot order; the BA's edges are
+        the inactive ones padded to ``ba_inactive_bucket``, then every
+        slot."""
+        ii, jj = self.ii, self.jj
+        EA = self.capacity
+        t0 = max(1, int(ii.min()) + 1)
+        t1 = int(max(ii.max(), jj.max())) + 1
+        g0 = int(min(ii.min(), jj.min(), t0 - 1))
+        ii_s = np.zeros(EA, np.int64)
+        jj_s = np.zeros(EA, np.int64)
+        valid_s = np.zeros(EA, np.int64)
+        ii_s[self.slots], jj_s[self.slots], valid_s[self.slots] = ii, jj, 1
+        self.window_bucket = max(self.window_bucket,
+                                 _bucket(t1 - g0, WINDOW_BUCKETS))
+        nw = self.window_bucket
+        if use_inactive and len(self.ii_inac):
+            m = (self.ii_inac >= t0 - 3) & (self.jj_inac >= t0 - 3)
+            ii_in, jj_in = self.ii_inac[m], self.jj_inac[m]
+            in_slots = self.inac_slots[m]
+        else:
+            ii_in = jj_in = in_slots = np.zeros(0, np.int64)
+        while len(ii_in) > self.ba_inactive_bucket:
+            self.ba_inactive_bucket *= 2
+        IB = self.ba_inactive_bucket
+        in_slots_p = np.full(IB, self.inactive_capacity, np.int64)
+        in_slots_p[:len(in_slots)] = in_slots
+        pad = np.full(IB - len(ii_in), t0)
+        ba_shape, plan = ba_inference.build_plan_padded(
+            np.concatenate([ii_in, pad, np.where(valid_s > 0, ii_s, t0)]),
+            np.concatenate([jj_in, pad, np.where(valid_s > 0, jj_s, t0)]),
+            t0, t1, np.concatenate([np.ones(len(ii_in), bool),
+                                    np.zeros(len(pad), bool), valid_s > 0]),
+            edges=IB + EA, window=self.window_bucket, rmax=self.rmax)
+        self.window_bucket = max(self.window_bucket, ba_shape.window)
+        self.rmax = max(self.rmax, ba_shape.rmax)
+        kf = (0, 0) if kf_pair is None else kf_pair
+        packed = _pack(*plan, ii_s, jj_s, valid_s, in_slots_p, kf, [g0],
+                       [0 if next_state_t1 is None else next_state_t1],
+                       [-1 if sens_frame is None else sens_frame])
+        return dict(packed=packed, ba_shape=ba_shape, nw=nw, EA=EA, g0=g0,
+                    IB=IB)
+
+    def up_dst_table(self, tb):
+        """disps_up destination of window row k: frame g0+k when it has
+        edges, else the sentinel (past the buffer)."""
+        nw, g0 = tb["nw"], tb["g0"]
+        dst = np.full(nw, self.video.buffer + 1, np.int64)
+        f = np.unique(self.ii)
+        f = f[(f - g0 >= 0) & (f - g0 < nw)]
+        dst[f - g0] = f
+        return dst
+
+    def drain_deferred(self):
+        """Padded (mv_src, mv_dst, ae_ii, ae_jj, ae_c, ae_slots) of the
+        queued moves and adds; clears the queue."""
+        cap, icap = self.capacity, self.inactive_capacity
+        mv_src = np.full(cap, cap, np.int64)
+        mv_dst = np.full(cap, icap, np.int64)
+        for n, (s, d) in enumerate(self._pending_moves):
+            mv_src[n], mv_dst[n] = s, d
+        self._pending_moves = []
+        if self._pending_add is None:
+            kb = self.ae_bucket
+            add = (np.zeros(kb, np.int64), np.zeros(kb, np.int64),
+                   np.zeros(kb, np.int64), np.full(kb, cap, np.int64))
+        else:
+            add, self._pending_add = self._pending_add, None
+        return (mv_src, mv_dst) + tuple(add)
+
+
+def _pack(*arrays):
+    """Host index arrays as one int32 vector."""
+    return np.concatenate([np.asarray(a).reshape(-1).astype(np.int32)
+                           for a in arrays])
+
+
+class FrameTables:
+    """The update tables of ``SlotGraph.update_tables``, unpacked on the
+    device from the int vector at static offsets."""
+
+    def __init__(self, take, ba_shape, ea, ib):
+        self.plan, self.edge_valid = ba_inference.unpack_plan(take, ba_shape)
+        self.ii, self.jj = take(ea).long(), take(ea).long()
+        self.valid = take(ea) > 0
+        self.in_slots = take(ib).long()
+        self.kf_pair = take(2).long()
+        self.g0, self.ns_t1, self.sens_frame = (take(1).long()[0]
+                                                for _ in range(3))
+
+
+def add_edges(g, ii, jj, c, slots):
+    """New edges into their slots (a slot past the capacity drops the
+    write): target = the current reprojection, weight 0, net from the
+    video, and the correlation pyramid."""
+    v, kb, hw = g.video, ii.shape[0], g.h * g.w
+    coords, _, _ = pops.projective_transform(v.poses, v.disps, v.intrinsics,
+                                             ii, jj)
+    target0 = coords.reshape(kb, hw, 2).transpose(1, 2)
+    g.net_e.index_copy_(0, slots, v.nets[ii])
+    g.target_e.index_copy_(0, slots, target0)
+    g.weight_e.index_copy_(0, slots, torch.zeros_like(target0))
+    if g.pyr_e is not None:
+        view2 = c * int(v.stereo)
+        vols = corr_ops.build_pyramid(v.fmaps[ii, 0], v.fmaps[jj, view2])
+        for p, q in zip(g.pyr_e, vols):
+            p.index_copy_(0, slots, q.to(p.dtype))
+
+
+def move_rows(g, src, dst):
+    """Active slots ``src`` into the inactive slots ``dst`` (a slot past
+    the store drops the write)."""
+    g.target_inac_p.index_copy_(0, dst, g.target_e[src])
+    g.weight_inac_p.index_copy_(0, dst, g.weight_e[src])
+
+
+def row(buf, index):
+    """buf[index] for a device scalar ``index`` (clamped into the buffer):
+    a gather, where Python indexing by a 0-d tensor would read it on the
+    host."""
+    return buf.index_select(
+        0, index.clamp(0, buf.shape[0] - 1).reshape(1))[0]
+
+
+def _row_put(buf, index, val, on):
+    """buf[index] = val where ``on`` and ``index`` lies in the buffer
+    (device scalars), in place."""
+    ok = on & (index >= 0) & (index < buf.shape[0])
+    r = index.clamp(0, buf.shape[0] - 1).reshape(1)
+    buf.index_copy_(0, r, torch.where(ok, val, row(buf, index))[None])
+
+
+def next_state_pose_disp(poses, disps, t1, motion_damping):
+    """The motion model's pose and disparity for frame t1 (a device
+    scalar), as ``slam/frontend.py::_init_next_state`` writes them."""
+    p_prev = row(poses, t1 - 1)
+    vel = se3.log(se3.mul(p_prev, se3.inv(row(poses, t1 - 2))))
+    new_pose = se3.mul(se3.exp(motion_damping * vel), p_prev)
+    dwin = torch.stack([row(disps, t1 - 3), row(disps, t1 - 2)])
+    return new_pose, torch.quantile(dwin, 0.5)
+
+
+class FrameIteration:
+    """One update iteration (update operator + 2 BA iterations) over
+    every slot, its writes in place and gated by a device flag
+    (droid_slam_tpu/state/graph.py:229-332). Per program, the context
+    features' GRU terms and the inactive edges are gathered once."""
+
+    def __init__(self, g, tabs, nw, ba_shape):
+        v = g.video
+        self.g, self.tabs, self.nw = g, tabs, nw
+        self.cap = cap = g.capacity
+        dev = v.device
+        self.slots = torch.arange(cap, dtype=torch.int32, device=dev)
+        self.pre = nets.gru_context_pre(g.params, v.inps[tabs.ii])
+        self.tgt_inac = g.target_inac_p[tabs.in_slots]
+        self.wgt_inac = g.weight_inac_p[tabs.in_slots]
+        self.agg_ii = torch.where(tabs.valid,
+                                  (tabs.ii - tabs.g0).clamp(0, nw - 1), nw)
+        counts = torch.zeros(nw + 1, device=dev).index_add_(
+            0, self.agg_ii, torch.ones(cap, device=dev))
+        self.present = counts[:nw] > 0
+        self.win = tabs.g0 + torch.arange(nw, device=dev)
+        self.vm = tabs.valid[:, None, None].float()
+
+    def __call__(self, run):
+        g, v, tabs, cap = self.g, self.g.video, self.tabs, self.cap
+        h, w = g.h, g.w
+        tgt_e, wgt_e, net_e = (g.target_e[:cap], g.weight_e[:cap],
+                               g.net_e[:cap])
+        coords1, motn = motion_features(v.poses, v.disps, v.intrinsics,
+                                        tabs.ii, tabs.jj, tgt_e)
+        corr = corr_cuda.lookup_pyramid_slots(
+            g.pyr_e, self.slots, coords1.reshape(cap, h * w, 2).contiguous())
+        net, delta, weight, eta, _ = nets.update_module(
+            g.params, net_e, None, corr_nchw(corr, h, w), motn,
+            ii=self.agg_ii, num_frames=self.nw + 1, pre=self.pre,
+            fused_epilogue=g.fused_epilogue)
+        tgt, wgt = target_weight(coords1, delta, weight)
+        net_e.copy_(torch.where(run, net, net_e))
+        tgt_e.copy_(torch.where(run, tgt * self.vm, tgt_e))
+        wgt_e.copy_(torch.where(run, wgt * self.vm, wgt_e))
+        win_c = self.win.clamp(max=v.buffer - 1)
+        damp = torch.where(self.present[:, None, None] & run,
+                           eta[:self.nw].float(), v.damping[win_c])
+        v.damping.copy_(ba_inference.window_put(v.damping, self.win, damp))
+        poses, disps = ba_inference.ba_iterations(
+            v.poses, v.disps, v.disps_sens, v.damping, v.intrinsics[0],
+            torch.cat([self.tgt_inac, tgt_e]),
+            torch.cat([self.wgt_inac, wgt_e]), tabs.plan, tabs.edge_valid,
+            lm=1e-4, ep=0.1, iters=2)
+        v.poses.copy_(torch.where(run, poses, v.poses))
+        v.disps.copy_(torch.where(run, disps, v.disps))
+
+    def upmask(self):
+        """The upsampling mask of the GRU state as it stands [nw,576,h,w]:
+        the last iteration's (droid_slam_tpu/state/graph.py:318-329)."""
+        g = self.g
+        _, upmask = nets.graph_agg(g.params, g.net_e[:self.cap], self.agg_ii,
+                                   self.nw + 1, compute_upmask=True)
+        return upmask[:self.nw]
+
+
+def update_part_a(g, tabs, nw, ba_shape, n_iters: int, n_iters_dev, gate,
+                  kf_beta):
+    """The iters1 half of an update (droid_slam_tpu/state/graph.py:
+    343-391): the sensor disparity of ``sens_frame`` (RGB-D), ``n_iters``
+    gated iterations (those at or past ``n_iters_dev`` write nothing), then
+    the keyframe distance of ``kf_pair``. Returns kf_dist (device)."""
+    v = g.video
+    sf = torch.where(gate, tabs.sens_frame, -1)
+    sens = row(v.disps_sens, sf)
+    _row_put(v.disps, sf, torch.where(sens > 0, sens, row(v.disps, sf)),
+             sf >= 0)
+    it = FrameIteration(g, tabs, nw, ba_shape)
+    for k in range(n_iters):
+        it(k < n_iters_dev)
+    kp = tabs.kf_pair
+    return gdist.frame_distance(v.poses, v.disps, v.intrinsics[0], kp[:1],
+                                kp[1:2], kf_beta)[0]
+
+
+def update_part_b(g, tabs, nw, ba_shape, n_iters: int, n_iters_dev, keep,
+                  do_next_state, motion_damping, up_dst=None):
+    """The iters2 half (droid_slam_tpu/state/graph.py:392-442): ``n_iters``
+    iterations gated by ``keep`` (the keyframe stays) and
+    ``n_iters_dev``; the full-resolution disparities of the window rows
+    whose ``up_dst`` is in the buffer (with ``upsample``); the motion
+    model's pose and disparity of the next frame when ``do_next_state``
+    and ``keep``."""
+    v = g.video
+    it = FrameIteration(g, tabs, nw, ba_shape)
+    for k in range(n_iters):
+        it(keep & (k < n_iters_dev))
+    if g.upsample:
+        win_c = it.win.clamp(max=v.buffer - 1)
+        up = nets.upsample_disp(v.disps[win_c], it.upmask().float())
+        on = (up_dst < v.buffer)[:, None, None]
+        v.disps_up.copy_(ba_inference.window_put(
+            v.disps_up, it.win, torch.where(on, up, v.disps_up[win_c])))
+    pose, disp = next_state_pose_disp(v.poses, v.disps, tabs.ns_t1,
+                                      motion_damping)
+    on = (do_next_state > 0) & keep
+    _row_put(v.poses, tabs.ns_t1, pose, on)
+    _row_put(v.disps, tabs.ns_t1, disp.expand(v.disps.shape[1:]), on)

@@ -78,19 +78,38 @@ class DepthVideo:
     def append(self, tstamp, **fields):
         """Write the next keyframe; fields left None keep their values
         (the motion model has already written the pose and disparity)."""
-        self.set_frame(self.counter, tstamp, **fields)
+        return self.set_frame(self.counter, tstamp, **fields)
 
     def set_frame(self, ix, tstamp, pose=None, disp=None, depth=None,
                   intrinsics=None, fmap=None, net=None, inp=None,
-                  image=None):
+                  image=None, defer=False):
         """Write frame ix (the counter grows to cover it); fields left None
         keep their values. ``depth`` is a full-resolution depth map [H,W]
         (``sensor_disparity``); ``fmap`` is [c,128,h,w], or one view
-        [128,h,w] written to every view; ``image`` is kept host-side."""
+        [128,h,w] written to every view; ``image`` is kept host-side.
+
+        With ``defer`` the device fields are not written: (ix, values,
+        fields) is returned for the frame program to write
+        (``write_frame``; droid_slam_tpu/state/video.py:144-188), and only
+        the image, the counter and the dirty flag change here."""
         if ix >= self.buffer:
             raise RuntimeError(
                 f"DepthVideo buffer full: keyframe index {ix} >= buffer "
                 f"{self.buffer}; raise the buffer or filter_thresh")
+        if defer:
+            values = {"tstamp": float(tstamp), "poses": pose, "disps": disp,
+                      "disps_sens": (None if depth is None
+                                     else sensor_disparity(depth)),
+                      "intrinsics": (None if intrinsics is None else
+                                     np.asarray(intrinsics, np.float32)),
+                      "fmaps": fmap, "nets": net, "inps": inp}
+            values = {k: v for k, v in values.items() if v is not None}
+            with self._lock:
+                if image is not None:
+                    self.images[ix] = image
+                self.counter = max(self.counter, ix + 1)
+                self.dirty[ix] = True
+            return ix, values, tuple(sorted(values))
         with self._lock:
             if image is not None:
                 self.images[ix] = image
@@ -189,4 +208,23 @@ class DepthVideo:
             self.intrinsics[0], target, weight, plan, lm=lm, ep=ep,
             iters=iters, motion_only=motion_only)
         with self._lock:
-            self.poses, self.disps = poses, disps
+            # in place: the frame path's captured programs read these
+            # buffers at the addresses they saw at capture
+            self.poses.copy_(poses)
+            self.disps.copy_(disps)
+
+
+def write_frame(video, index, values, fields):
+    """Write one keyframe's ``fields`` inside the frame program: ``index``
+    is a device scalar, and a row past the buffer (the sentinel of a
+    rejected or mis-speculated frame) writes nothing. ``values`` holds
+    device tensors. Counterpart of
+    ``droid_slam_tpu/state/video.py::_write_frame_traced``."""
+    B = video.buffer
+    ok = (index >= 0) & (index < B)
+    row = index.clamp(0, B - 1).reshape(1)
+    for name in fields:
+        buf = getattr(video, name)
+        val = values[name].to(buf.dtype).expand(buf.shape[1:])
+        old = buf.index_select(0, row)[0]
+        buf.index_copy_(0, row, torch.where(ok, val, old)[None])

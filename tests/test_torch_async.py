@@ -483,10 +483,11 @@ def rel_ate(traj, ref):
 
 def run_bench(kind, seed=0, frames=40, buffer=64, sleep_time=0.5,
               backend_iters=1, join_timeout=300.0, size=(H, W),
-              device="cpu"):
+              device="cpu", **flags):
     """make_droid on the sliding scene (texture from ``seed``) with the
     bench's thresholds (every frame a keyframe), fused epilogues; kind
-    "sync", "thread" or "process".
+    "sync", "thread" or "process"; ``flags``: more DroidConfig fields (the
+    tracking path's).
     Returns (trajectory [frames/2, 7], backend cycles before terminate(),
     seconds)."""
     from droid_slam_tpu_torch.config import DroidConfig
@@ -497,7 +498,8 @@ def run_bench(kind, seed=0, frames=40, buffer=64, sleep_time=0.5,
                       filter_thresh=-1.0, keyframe_thresh=-1.0,
                       frontend_window=20, frontend_thresh=17.5,
                       frontend_radius=2, frontend_nms=1, weights=CKPT,
-                      gru_fused_epilogue=True, asynchronous=kind != "sync")
+                      gru_fused_epilogue=True, asynchronous=kind != "sync",
+                      **flags)
     kw = {} if kind == "sync" else dict(sleep_time=sleep_time,
                                         backend_iters=backend_iters)
     saved = os.environ.pop("DROID_ASYNC_PROCESS", None)
@@ -570,18 +572,29 @@ def test_async_on_cuda_matches_its_backend_driven_by_hand(kind):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
     _skip_without_checkpoint()
+    traj, cycles, secs, droid = run_bench(kind, device="cuda", **LAST_CYCLE)
+    if kind == "thread":
+        # on a machine with a second card the backend runs there
+        from droid_slam_tpu_torch.slam.async_droid import backend_device
+        assert droid.video2.device == backend_device(droid.device)
+    gaps = last_cycle_gaps(droid, traj)
+    print(kind, "cuda", dict(gaps, backend_device=str(droid.video2.device)))
+    assert gaps["pose_gap"] <= REPLAY_POSE_TOL < gaps["control_no_ba"]
+
+
+def last_cycle_gaps(droid, traj):
+    """A facade run in LAST_CYCLE's schedule: its one backend cycle, over
+    every keyframe, against a ``DroidAsyncBackend`` driven by hand on the
+    default stream from the tracker's final keyframes, with the cycle's
+    steps and with none (the control). Asserts the schedule; returns the
+    largest pose gaps."""
     from droid_slam_tpu_torch.slam.async_droid import merge_frames
     from droid_slam_tpu_torch.slam.backend import DroidAsyncBackend
     from droid_slam_tpu_torch.slam.droid import f32_matmuls
     from droid_slam_tpu_torch.state.video import DepthVideo
 
     n, iters = LAST_CYCLE["frames"], LAST_CYCLE["backend_iters"]
-    traj, cycles, secs, droid = run_bench(kind, device="cuda", **LAST_CYCLE)
     assert traj.shape == (n // 2, 7) and np.isfinite(traj).all()
-    if kind == "thread":
-        # on a machine with a second card the backend runs there
-        from droid_slam_tpu_torch.slam.async_droid import backend_device
-        assert droid.video2.device == backend_device(droid.device)
     assert [(c["t0"], c["t1"]) for c in droid.cycles] == [(0, n)]
     assert droid.video2.counter == n
     assert torch.equal(droid.video2.tstamp[:n].cpu(),
@@ -599,9 +612,7 @@ def test_async_on_cuda_matches_its_backend_driven_by_hand(kind):
         if steps:
             assert edges == droid.cycles[0]["edges"]
         gaps[steps] = float((v2.poses[:n].cpu() - got).abs().max())
-    print(kind, "cuda", dict(pose_gap=gaps[iters], control_no_ba=gaps[0],
-                             backend_device=str(droid.video2.device)))
-    assert gaps[iters] <= REPLAY_POSE_TOL < gaps[0]
+    return dict(pose_gap=gaps[iters], control_no_ba=gaps[0])
 
 
 def test_process_backend_failure_raises_in_the_tracker(tmp_path):

@@ -23,7 +23,9 @@ CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
 # JAX fields of modes the port does not run: none since the edge-parallel
 # frontend (parallel/frontend.py)
 JAX_ONLY = set()
-PORT_ONLY = {"gru_fused_epilogue"}
+# the port's flags for what JAX selects by environment variable
+# (DROID_GRU_PALLAS, DROID_FUSED_FRAME, DROID_SPEC_FRAME)
+PORT_ONLY = {"gru_fused_epilogue", "fused_frame", "spec_frame"}
 
 
 def _fields(cfg):
@@ -46,6 +48,7 @@ def test_presets_equal_jax_field_by_field(name):
     for k in set(jf) & set(tf):
         assert tf[k] == jf[k], (name, k)
     assert tf["gru_fused_epilogue"] is False
+    assert tf["fused_frame"] is None and tf["spec_frame"] is None
 
 
 def test_edge_parallel_defaults_to_serial_as_jax():

@@ -1,7 +1,8 @@
 """The port stands alone: importing any of its modules (or chip_smoke.py,
 demo_torch.py, train_torch.py, view_reconstruction_torch.py, the
-evaluation scripts ``evaluation_scripts/*_torch.py`` or
-tools/bench_global_ba_torch.py) pulls in neither JAX nor the JAX package,
+evaluation scripts ``evaluation_scripts/*_torch.py``,
+tools/bench_global_ba_torch.py or tools/frame_path_probe_torch.py) pulls in
+neither JAX nor the JAX package,
 and its entry points default to the GPU."""
 
 import inspect
@@ -31,6 +32,7 @@ CLIS = {
     "evaluation_scripts/validate_tartanair_torch.py": ["--datapath", "d"],
     "evaluation_scripts/ate_curve_torch.py": ["--ckpts", "c.npz"],
     "tools/bench_global_ba_torch.py": [],
+    "tools/frame_path_probe_torch.py": [],
 }
 SCRIPTS = sorted(CLIS)
 
