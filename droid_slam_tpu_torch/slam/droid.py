@@ -16,6 +16,13 @@ JAX:
 ``terminate()`` runs the global BA passes and the trajectory filler.
 ``TrackPipeline`` is the tracking half, which the asynchronous facades
 (``slam/async_droid.py``, ``slam/async_process.py``) share.
+
+Under a running ``torch.profiler`` (``utils/trace.py``) a call is the span
+``droid:track`` (args: tstamp), with ``droid:strict`` (the strict path and
+``flush``), ``droid:resolve`` (the previous readback, keyframe removal,
+admission), ``droid:update_host``, ``droid:pack`` (the deferred moves and
+the frame's tables), ``droid:dispatch``, ``droid:readback_wait``,
+``droid:capture`` and ``droid:spec_unwind`` inside it.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from ..lie import se3
 from ..models import weights as weights_io
 from ..state.graph import SlotGraph
 from ..state.video import DepthVideo
+from ..utils import trace
 from . import fused_frame
 from .backend import DroidBackend
 from .frontend import DroidFrontend
@@ -134,6 +142,13 @@ class TrackPipeline:
         # speculation outcomes: frames unwound, frames run again after a
         # keyframe removal, proposals without their probed distances
         self.spec_mis = self.strict_reruns = self.spec_dist_miss = 0
+        # the frame path, from values the host already holds: read-back
+        # deltas above the filter's threshold; frame programs that ran an
+        # update and their live edges at dispatch; update iterations the
+        # programs ran, and those whose writes were kept (``iters1``, and
+        # ``iters2`` when the keyframe stayed, once the readback says so)
+        self.admitted = self.updates = self.update_edges = 0
+        self.iters_run = self.iters_kept = 0
 
     @torch.no_grad()
     @_f32_matmuls
@@ -142,35 +157,49 @@ class TrackPipeline:
         stack [2,H,W,3], left view first; depth: None, or a depth map
         [H,W] f32 (RGB-D; values <= 0 mark pixels without depth);
         intrinsics [fx, fy, cx, cy] at full resolution."""
-        if (self._fused_frame and self.frontend.is_initialized
-                and self.filterx._pending is not None
-                and len(self.frontend.graph.ii)):
-            if (self._spec_frame and self._pending_vec is not None
-                    and self._spec_meta is not None):
-                self._track_fused_spec(tstamp, image, depth, intrinsics)
-            else:
-                self._track_fused(tstamp, image, depth, intrinsics)
-            return
-        self._resolve_prev()
-        self.frontend()
-        self.filterx.track_begin(tstamp, image, depth, intrinsics)
+        with trace.span("track", {"tstamp": float(tstamp)}):
+            if (self._fused_frame and self.frontend.is_initialized
+                    and self.filterx._pending is not None
+                    and len(self.frontend.graph.ii)):
+                if (self._spec_frame and self._pending_vec is not None
+                        and self._spec_meta is not None):
+                    self._track_fused_spec(tstamp, image, depth, intrinsics)
+                else:
+                    self._track_fused(tstamp, image, depth, intrinsics)
+                return
+            with trace.span("strict"):
+                self._resolve_prev()
+                self.frontend()
+                self.filterx.track_begin(tstamp, image, depth, intrinsics)
 
     def _resolve_prev(self, defer=False):
         """Resolve the previous frame's keyframe distance and admission,
         from the frame program's readback when one is pending. Returns the
         keyframe write with ``defer``."""
-        if self._pending_vec is not None:
-            vec = self._pending_vec.numpy()
-            self._pending_vec = None
-            self._delta_log.append(float(vec[1]))
-            self.frontend.finalize(
-                kf_value=float(vec[0]) if self._pending_ran_upd else None)
-            return self.filterx.track_finish(
-                defer=defer, resolved=(float(vec[1]), vec[2:]))
-        self.frontend.finalize()
-        if defer:
-            return self.filterx.track_finish(defer=True)
-        return self.filterx.track_finish()
+        with trace.span("resolve"):
+            if self._pending_vec is not None:
+                vec = self._pending_vec.numpy()
+                self._pending_vec = None
+                self._count_readback(vec, self._pending_ran_upd)
+                self._delta_log.append(float(vec[1]))
+                self.frontend.finalize(
+                    kf_value=float(vec[0]) if self._pending_ran_upd
+                    else None)
+                return self.filterx.track_finish(
+                    defer=defer, resolved=(float(vec[1]), vec[2:]))
+            self.frontend.finalize()
+            if defer:
+                return self.filterx.track_finish(defer=True)
+            return self.filterx.track_finish()
+
+    def _count_readback(self, vec, ran_upd):
+        """The counters a frame program's readback settles: its admission,
+        and with an update the iterations whose writes were kept."""
+        f = self.frontend
+        self.admitted += float(vec[1]) > self.filterx.thresh
+        if ran_upd:
+            kept = float(vec[0]) >= 2.0 * f.keyframe_thresh
+            self.iters_kept += f.iters1 + (f.iters2 if kept else 0)
 
     # ------------------------------------------------------------------
     # the frame path (droid_slam_tpu/slam/droid.py:108-413)
@@ -197,33 +226,39 @@ class TrackPipeline:
                   else g.update_tables(use_inactive=True))
             pi, pj = mf.track_begin(tstamp, img, depth, intrinsics,
                                     defer=True)
-            mv_src, mv_dst, ae_ii, ae_jj, ae_c, ae_slots = \
-                g.drain_deferred()
         finally:
             g.defer = False
-        wf_index, values, fields = wf
-        if not set(fields) <= fused_frame.FIELDS:
-            raise ValueError(f"a frame program writes {fused_frame.FIELDS},"
-                             f" not {fields}")
-        enc = self.frame_programs.enc
-        for buf, name in zip(enc.bufs(), ("fmaps", "nets", "inps")):
-            if values[name] is not buf:   # the strict path's last encode
-                buf.copy_(values[name])
-        up_dst = (g.up_dst_table(tb) if g.upsample
-                  else np.zeros(tb["nw"], np.int64))
-        ints = np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in (
-            [wf_index, v.counter - 1, f.iters1 if run_upd else 0,
-             f.iters2 if run_upd else 0, int(run_upd), spec_mode,
-             f.probe_lead], mv_src, mv_dst, ae_ii, ae_jj, ae_c, ae_slots,
-            up_dst, pi, pj)] + [tb["packed"]]).astype(np.int32)
-        floats = np.concatenate([[values["tstamp"]],
-                                 values["intrinsics"]]).astype(np.float32)
-        key = fused_frame.FrameKey(
-            ea=g.capacity, ib=tb["IB"], kb=len(ae_ii), nw=tb["nw"],
-            pb=len(pi), ba_shape=tuple(tb["ba_shape"]), fields=fields,
-            iters1=f.iters1, iters2=f.iters2, upsample=g.upsample,
-            with_volumes=g.pyr_e is not None,
-            fused_epilogue=g.fused_epilogue, generation=g.generation)
+        with trace.span("pack"):
+            mv_src, mv_dst, ae_ii, ae_jj, ae_c, ae_slots = \
+                g.drain_deferred()
+            wf_index, values, fields = wf
+            if not set(fields) <= fused_frame.FIELDS:
+                raise ValueError(f"a frame program writes "
+                                 f"{fused_frame.FIELDS}, not {fields}")
+            enc = self.frame_programs.enc
+            for buf, name in zip(enc.bufs(), ("fmaps", "nets", "inps")):
+                if values[name] is not buf:   # the strict path's last encode
+                    buf.copy_(values[name])
+            up_dst = (g.up_dst_table(tb) if g.upsample
+                      else np.zeros(tb["nw"], np.int64))
+            ints = np.concatenate([np.asarray(a, np.int64).reshape(-1)
+                                   for a in (
+                [wf_index, v.counter - 1, f.iters1 if run_upd else 0,
+                 f.iters2 if run_upd else 0, int(run_upd), spec_mode,
+                 f.probe_lead], mv_src, mv_dst, ae_ii, ae_jj, ae_c, ae_slots,
+                up_dst, pi, pj)] + [tb["packed"]]).astype(np.int32)
+            floats = np.concatenate([[values["tstamp"]],
+                                     values["intrinsics"]]).astype(np.float32)
+            key = fused_frame.FrameKey(
+                ea=g.capacity, ib=tb["IB"], kb=len(ae_ii), nw=tb["nw"],
+                pb=len(pi), ba_shape=tuple(tb["ba_shape"]), fields=fields,
+                iters1=f.iters1, iters2=f.iters2, upsample=g.upsample,
+                with_volumes=g.pyr_e is not None,
+                fused_epilogue=g.fused_epilogue, generation=g.generation)
+        self.iters_run += key.iters1 + key.iters2
+        if run_upd:
+            self.updates += 1
+            self.update_edges += len(g.ii)
         # the lock across both programs: the asynchronous backend reads the
         # video under it (droid_slam_tpu/slam/droid.py:176-185)
         with v.get_lock():
@@ -319,51 +354,56 @@ class TrackPipeline:
             spec_mode=1 | (2 if meta_prev["ran_upd"] else 0))
 
         # resolve the previous readback while the device works
-        vec = vec_prev.numpy()
-        self._delta_log.append(float(vec[1]))
-        if meta_prev["probe_key"] is not None:
-            self._dist_ring[meta_prev["probe_key"]] = \
-                vec[2:2 + meta_prev["n_pairs"]].copy()
-            while len(self._dist_ring) > 4:
-                self._dist_ring.pop(next(iter(self._dist_ring)))
-        keep_ok = (not meta_prev["ran_upd"]) or \
-            float(vec[0]) >= 2.0 * f.keyframe_thresh
-        admit_ok = float(vec[1]) > mf.thresh
+        with trace.span("resolve"):
+            vec = vec_prev.numpy()
+            self._count_readback(vec, meta_prev["ran_upd"])
+            self._delta_log.append(float(vec[1]))
+            if meta_prev["probe_key"] is not None:
+                self._dist_ring[meta_prev["probe_key"]] = \
+                    vec[2:2 + meta_prev["n_pairs"]].copy()
+                while len(self._dist_ring) > 4:
+                    self._dist_ring.pop(next(iter(self._dist_ring)))
+            keep_ok = (not meta_prev["ran_upd"]) or \
+                float(vec[0]) >= 2.0 * f.keyframe_thresh
+            admit_ok = float(vec[1]) > mf.thresh
         if keep_ok and admit_ok:
             return
+        with trace.span("spec_unwind"):
+            self.spec_mis += 1
+            cur_meta, cur_vec = self._spec_meta, self._pending_vec
+            self._spec_restore(snap)
+            if keep_ok:
+                # the previous frame was rejected: this frame's writes were
+                # dropped and its encode stands
+                mf.count = snap["mf_count"] + 1
+                self._pending_vec = cur_vec
+                self._pending_ran_upd = False
+                self._spec_meta = dict(cur_meta, ran_upd=False)
+                return
 
-        self.spec_mis += 1
-        cur_meta, cur_vec = self._spec_meta, self._pending_vec
-        self._spec_restore(snap)
-        if keep_ok:
-            # the previous frame was rejected: this frame's writes were
-            # dropped and its encode stands
-            mf.count = snap["mf_count"] + 1
-            self._pending_vec = cur_vec
-            self._pending_ran_upd = False
-            self._spec_meta = dict(cur_meta, ran_upd=False)
-            return
-
-        # keyframe removal: resolve strictly and run the frame again, with
-        # the previous frame's encode back in place
-        self.strict_reruns += 1
-        enc = self.frame_programs.enc
-        for buf, prev in zip(enc.bufs(), enc.prev):
-            buf.copy_(prev)
-        mf._pending = snap["mf_pending"]
-        self._pending_vec = self._spec_meta = None
-        f.finalize(kf_value=float(vec[0]))
-        wf = mf.track_finish(defer=True, resolved=(float(vec[1]), vec[2:]))
-        self._fused_build_and_dispatch(tstamp, img, depth, intrinsics, wf)
+            # keyframe removal: resolve strictly and run the frame again,
+            # with the previous frame's encode back in place
+            self.strict_reruns += 1
+            enc = self.frame_programs.enc
+            for buf, prev in zip(enc.bufs(), enc.prev):
+                buf.copy_(prev)
+            mf._pending = snap["mf_pending"]
+            self._pending_vec = self._spec_meta = None
+            f.finalize(kf_value=float(vec[0]))
+            wf = mf.track_finish(defer=True,
+                                 resolved=(float(vec[1]), vec[2:]))
+            self._fused_build_and_dispatch(tstamp, img, depth, intrinsics,
+                                           wf)
 
     @torch.no_grad()
     @_f32_matmuls
     def flush(self):
         """Resolve the last frame's admission and run its update."""
         self._spec_meta = None
-        self._resolve_prev()
-        self.frontend()
-        self.frontend.finalize()
+        with trace.span("strict"):
+            self._resolve_prev()
+            self.frontend()
+            self.frontend.finalize()
 
     def _sync(self):
         if self.device.type == "cuda":

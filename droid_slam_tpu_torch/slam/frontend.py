@@ -28,6 +28,7 @@ from ..geom import distance as gdist
 from ..lie import se3
 from ..parallel.frontend import edge_parallel_mesh
 from ..state.graph import FactorGraph, SlotGraph
+from ..utils import trace
 
 
 class DroidFrontend:
@@ -85,26 +86,29 @@ class DroidFrontend:
     def update_host(self):
         """The host half of an update on the frame path: eviction, the
         proximity proposal (with the probed distances when their key
-        matches) and the tables (``SlotGraph.update_tables``)."""
-        self.count += 1
-        self.t1 += 1
-        g = self.graph
-        if len(g.ii):
-            g.rm_factors(g.age > self.max_age, store=True)
-        mf, dist = self.motion_filter, None
-        if (mf is not None and mf.pending_distance is not None
-                and self._probe_key == (self.video.counter, self.t1)):
-            dist = mf.pending_distance
-        g.add_proximity_factors(
-            self.t1 - 5, max(self.t1 - self.frontend_window, 0),
-            rad=self.frontend_radius, nms=self.frontend_nms,
-            thresh=self.frontend_thresh, beta=self.beta, remove=True,
-            dist=dist)
-        tb = g.update_tables(use_inactive=True,
-                             kf_pair=(self.t1 - 4, self.t1 - 2),
-                             next_state_t1=self.t1, sens_frame=self.t1 - 1)
-        self.video.dirty[int(g.ii.min()):self.t1] = True
-        return tb
+        matches) and the tables (``SlotGraph.update_tables``); the span
+        ``droid:update_host``."""
+        with trace.span("update_host"):
+            self.count += 1
+            self.t1 += 1
+            g = self.graph
+            if len(g.ii):
+                g.rm_factors(g.age > self.max_age, store=True)
+            mf, dist = self.motion_filter, None
+            if (mf is not None and mf.pending_distance is not None
+                    and self._probe_key == (self.video.counter, self.t1)):
+                dist = mf.pending_distance
+            g.add_proximity_factors(
+                self.t1 - 5, max(self.t1 - self.frontend_window, 0),
+                rad=self.frontend_radius, nms=self.frontend_nms,
+                thresh=self.frontend_thresh, beta=self.beta, remove=True,
+                dist=dist)
+            tb = g.update_tables(use_inactive=True,
+                                 kf_pair=(self.t1 - 4, self.t1 - 2),
+                                 next_state_t1=self.t1,
+                                 sens_frame=self.t1 - 1)
+            self.video.dirty[int(g.ii.min()):self.t1] = True
+            return tb
 
     def _init_next_state(self):
         """Motion model and median disparity for the incoming frame t1."""

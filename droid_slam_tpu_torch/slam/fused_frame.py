@@ -59,6 +59,7 @@ from ..state.graph import (FrameTables, add_edges, move_rows,
                            next_state_pose_disp, _row_put, row,
                            update_part_a, update_part_b)
 from ..state.video import write_frame
+from ..utils import trace
 from .motion_filter import encode_delta
 
 HEAD = ("wf_index", "kf_index", "n_iters", "n_iters2", "do_next_state",
@@ -257,8 +258,9 @@ class Readback:
             self.host = vec.clone()
 
     def numpy(self):
-        if self.event is not None:
-            self.event.synchronize()
+        with trace.span("readback_wait"):
+            if self.event is not None:
+                self.event.synchronize()
         return self.host.numpy()
 
 
@@ -283,7 +285,11 @@ class FramePrograms:
     captures reserved: the shared pool), ``replays`` (frames replayed),
     ``eager`` (frames run as plain calls), ``replayed_launches`` (the
     kernels' launches made by replays), ``capture_at`` (the frames that
-    captured, counted from the first frame of the path)."""
+    captured, counted from the first frame of the path).
+
+    Spans: ``droid:dispatch`` (a frame: uploads and replays, or the eager
+    run) and ``droid:capture`` (warm-up and capture; ``why``: a new key,
+    a new pool generation, or a larger probe bucket)."""
 
     def __init__(self, video, consts: Consts, graphs=None):
         self.video = video
@@ -304,6 +310,7 @@ class FramePrograms:
         self.sync_debug = None
         self.capture_s = 0.0
         self.pool_bytes = 0
+        self._bucket_grew = False   # _vec_for dropped the graphs
 
     def _vec_for(self, pb):
         """The readback vector for ``pb`` probe pairs; its gate entries
@@ -313,6 +320,7 @@ class FramePrograms:
             vec = torch.zeros(2 + pb, device=self.video.device)
             vec[:2] = self.vec[:2]
             self.vec = vec
+            self._bucket_grew = bool(self.cache)
             self._drop(lambda k: True)
         return self.vec
 
@@ -329,6 +337,10 @@ class FramePrograms:
         """One frame: part A, its readback, part B. ``ints``/``floats``:
         the host vectors; ``image`` [c,H,W,3] uint8 and ``sens`` [h,w]
         (or None) numpy. Returns the ``Readback``."""
+        with trace.span("dispatch"):
+            return self._run(g, key, ints, floats, image, sens)
+
+    def _run(self, g, key, ints, floats, image, sens):
         vec = self._vec_for(key.pb)
         if not self.graphs:
             dev = self.video.device
@@ -344,7 +356,8 @@ class FramePrograms:
             return out
         cap = self.cache.get(key)
         if cap is None:
-            return self._capture(g, key, ints, floats, image, sens)
+            with trace.span("capture", {"why": self._why(key)}):
+                return self._capture(g, key, ints, floats, image, sens)
         self._upload(cap, ints, floats, image, sens)
         cap.a.replay()
         out = Readback(vec)
@@ -355,6 +368,17 @@ class FramePrograms:
                                       zip(self.replayed_launches, d)]
         self.replays += 1
         return out
+
+    def _why(self, key):
+        """Why ``key`` captures: "probe_bucket" (``_vec_for`` dropped
+        every graph), "generation" (the pools grew since the graphs held
+        were captured) or "new_key"."""
+        grew, self._bucket_grew = self._bucket_grew, False
+        if grew:
+            return "probe_bucket"
+        if any(k.generation != key.generation for k in self.cache):
+            return "generation"
+        return "new_key"
 
     @staticmethod
     def _upload(cap, ints, floats, image, sens):

@@ -42,6 +42,7 @@ from ..models import nets
 from ..ops import corr as corr_ops
 from ..ops import corr_cuda
 from ..parallel import mesh as pmesh
+from ..utils import trace
 
 _BF16 = torch.bfloat16
 
@@ -531,26 +532,32 @@ class FactorGraph:
         frames lie in [g0, g0+8); writes their net, target and weight, and
         the damping (and with ``upsample`` the full-resolution disparities)
         of the source frames present. ``rows``: every edge's source and
-        target rows of the feature pyramid."""
-        v = self.video
-        sel = self._dev(idx)
-        ii, jj = self.ii[idx], self.jj[idx]
-        ii_t, jj_t = self._dev(ii), self._dev(jj)
-        coords1, motn = motion_features(v.poses, v.disps, v.intrinsics, ii_t,
-                                        jj_t, self.target[sel])
-        corr = corr_ops.alt_lookup(fpyr, coords1.reshape(len(idx), -1, 2),
-                                   rows[0][sel], rows[1][sel])
-        net, delta, weight, eta, upmask = nets.update_module(
-            self.params, self.net[sel], v.inps[ii_t],
-            corr_nchw(corr, self.h, self.w), motn, ii=ii_t - g0,
-            num_frames=8, compute_upmask=self.upsample)
-        self.net[sel] = net
-        self.target[sel], self.weight[sel] = target_weight(coords1, delta,
-                                                           weight)
-        frames = np.unique(ii)
-        v.damping[self._dev(frames)] = eta[self._dev(frames - g0)].float()
-        if self.upsample:
-            self._write_disps_up(frames, upmask[self._dev(frames - g0)])
+        target rows of the feature pyramid. The span ``droid:sweep_chunk``
+        (args: the first frame, the edges)."""
+        with trace.span("sweep_chunk",
+                        {"first": int(g0), "edges": len(idx)}):
+            v = self.video
+            sel = self._dev(idx)
+            ii, jj = self.ii[idx], self.jj[idx]
+            ii_t, jj_t = self._dev(ii), self._dev(jj)
+            coords1, motn = motion_features(v.poses, v.disps, v.intrinsics,
+                                            ii_t, jj_t, self.target[sel])
+            corr = corr_ops.alt_lookup(fpyr,
+                                       coords1.reshape(len(idx), -1, 2),
+                                       rows[0][sel], rows[1][sel])
+            net, delta, weight, eta, upmask = nets.update_module(
+                self.params, self.net[sel], v.inps[ii_t],
+                corr_nchw(corr, self.h, self.w), motn, ii=ii_t - g0,
+                num_frames=8, compute_upmask=self.upsample)
+            self.net[sel] = net
+            self.target[sel], self.weight[sel] = target_weight(
+                coords1, delta, weight)
+            frames = np.unique(ii)
+            v.damping[self._dev(frames)] = \
+                eta[self._dev(frames - g0)].float()
+            if self.upsample:
+                self._write_disps_up(frames,
+                                     upmask[self._dev(frames - g0)])
 
     # ------------------------------------------------------------------
     # edge proposers
@@ -572,56 +579,59 @@ class FactorGraph:
         of [t0, t) also gets its (i, i) edge (droid_slam_tpu/native/
         plan_builder.cpp:182-193, in the same order). ``dist``: the pairs'
         distances, already probed by the frame program (used when it has
-        one per pair)."""
-        t = self.video.counter
-        ix, jx = np.arange(t0, t), np.arange(t1, t)
-        if len(ix) == 0 or len(jx) == 0:
-            return
-        ii, jj = np.meshgrid(ix, jx, indexing="ij")
-        ii, jj = ii.reshape(-1), jj.reshape(-1)
-        if dist is not None and len(dist) == len(ii):
-            d = np.asarray(dist, np.float64)
-        else:
-            d = self.video.distance(ii, jj, beta=beta).cpu().numpy() \
-                .astype(np.float64)
-        d[ii - rad < jj] = np.inf
-        d[d > 100] = np.inf
-        cols = t - t1
+        one per pair). The span ``droid:proposal``."""
+        with trace.span("proposal"):
+            t = self.video.counter
+            ix, jx = np.arange(t0, t), np.arange(t1, t)
+            if len(ix) == 0 or len(jx) == 0:
+                return
+            ii, jj = np.meshgrid(ix, jx, indexing="ij")
+            ii, jj = ii.reshape(-1), jj.reshape(-1)
+            if dist is not None and len(dist) == len(ii):
+                d = np.asarray(dist, np.float64)
+            else:
+                d = self.video.distance(ii, jj, beta=beta).cpu().numpy() \
+                    .astype(np.float64)
+            d[ii - rad < jj] = np.inf
+            d[d > 100] = np.inf
+            cols = t - t1
 
-        def suppress(i, j):
-            n = max(min(abs(i - j) - 2, nms), 0)
-            for di in range(-nms, nms + 1):
-                for dj in range(-nms, nms + 1):
-                    if abs(di) + abs(dj) <= n:
-                        i1, j1 = i + di, j + dj
-                        if t0 <= i1 < t and t1 <= j1 < t:
-                            d[(i1 - t0) * cols + (j1 - t1)] = np.inf
+            def suppress(i, j):
+                n = max(min(abs(i - j) - 2, nms), 0)
+                for di in range(-nms, nms + 1):
+                    for dj in range(-nms, nms + 1):
+                        if abs(di) + abs(dj) <= n:
+                            i1, j1 = i + di, j + dj
+                            if t0 <= i1 < t and t1 <= j1 < t:
+                                d[(i1 - t0) * cols + (j1 - t1)] = np.inf
 
-        for i, j in zip(np.concatenate([self.ii, self.ii_inac]).tolist(),
-                        np.concatenate([self.jj, self.jj_inac]).tolist()):
-            suppress(i, j)
+            for i, j in zip(
+                    np.concatenate([self.ii, self.ii_inac]).tolist(),
+                    np.concatenate([self.jj, self.jj_inac]).tolist()):
+                suppress(i, j)
 
-        es = []
-        for i in range(t0, t):
-            if self.video.stereo:
-                es.append((i, i))   # its distance is already inf: i-rad < i
-            for j in range(max(i - rad - 1, 0), i):
+            es = []
+            for i in range(t0, t):
+                if self.video.stereo:
+                    # its distance is already inf: i-rad < i
+                    es.append((i, i))
+                for j in range(max(i - rad - 1, 0), i):
+                    es += [(i, j), (j, i)]
+                    if t1 <= j < t:
+                        d[(i - t0) * cols + (j - t1)] = np.inf
+
+            for k in np.argsort(d, kind="stable"):
+                if d[k] > thresh:
+                    continue
+                if self.max_factors > 0 and len(es) > self.max_factors:
+                    break
+                i, j = int(ii[k]), int(jj[k])
                 es += [(i, j), (j, i)]
-                if t1 <= j < t:
-                    d[(i - t0) * cols + (j - t1)] = np.inf
+                suppress(i, j)
 
-        for k in np.argsort(d, kind="stable"):
-            if d[k] > thresh:
-                continue
-            if self.max_factors > 0 and len(es) > self.max_factors:
-                break
-            i, j = int(ii[k]), int(jj[k])
-            es += [(i, j), (j, i)]
-            suppress(i, j)
-
-        if es:
-            es = np.asarray(es, np.int64)
-            self.add_factors(es[:, 0], es[:, 1], remove)
+            if es:
+                es = np.asarray(es, np.int64)
+                self.add_factors(es[:, 0], es[:, 1], remove)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from ..geom import distance as gdist
 from ..geom import projective as pops
 from ..lie import se3
 from ..ba import inference as ba_inf
+from ..utils import trace
 
 
 def sensor_disparity(depth) -> np.ndarray:
@@ -189,29 +190,34 @@ class DepthVideo:
 
     def distance(self, ii, jj, beta=0.3, bidirectional=True):
         """Frame distance of each pair (ii[k], jj[k]) -> [len(ii)] tensor,
-        computed ``_DIST_CHUNK`` pairs at a time."""
-        ii = torch.as_tensor(np.atleast_1d(ii), device=self.device)
-        jj = torch.as_tensor(np.atleast_1d(jj), device=self.device)
-        return torch.cat([
-            gdist.frame_distance(self.poses, self.disps, self.intrinsics[0],
-                                 ii[s:s + self._DIST_CHUNK],
-                                 jj[s:s + self._DIST_CHUNK], beta,
-                                 bidirectional=bidirectional)
-            for s in range(0, max(len(ii), 1), self._DIST_CHUNK)])
+        computed ``_DIST_CHUNK`` pairs at a time; the span
+        ``droid:distance``."""
+        with trace.span("distance"):
+            ii = torch.as_tensor(np.atleast_1d(ii), device=self.device)
+            jj = torch.as_tensor(np.atleast_1d(jj), device=self.device)
+            return torch.cat([
+                gdist.frame_distance(self.poses, self.disps,
+                                     self.intrinsics[0],
+                                     ii[s:s + self._DIST_CHUNK],
+                                     jj[s:s + self._DIST_CHUNK], beta,
+                                     bidirectional=bidirectional)
+                for s in range(0, max(len(ii), 1), self._DIST_CHUNK)])
 
     def ba(self, target, weight, plan, iters=2, lm=1e-4, ep=0.1,
            motion_only=False):
         """Dense BA over the plan's edges (target/weight [E,2,HW]), with the
-        sensor disparities as a prior where they are set."""
-        poses, disps = ba_inf.ba_iterations(
-            self.poses, self.disps, self.disps_sens, self.damping,
-            self.intrinsics[0], target, weight, plan, lm=lm, ep=ep,
-            iters=iters, motion_only=motion_only)
-        with self._lock:
-            # in place: the frame path's captured programs read these
-            # buffers at the addresses they saw at capture
-            self.poses.copy_(poses)
-            self.disps.copy_(disps)
+        sensor disparities as a prior where they are set; the span
+        ``droid:ba``."""
+        with trace.span("ba"):
+            poses, disps = ba_inf.ba_iterations(
+                self.poses, self.disps, self.disps_sens, self.damping,
+                self.intrinsics[0], target, weight, plan, lm=lm, ep=ep,
+                iters=iters, motion_only=motion_only)
+            with self._lock:
+                # in place: the frame path's captured programs read these
+                # buffers at the addresses they saw at capture
+                self.poses.copy_(poses)
+                self.disps.copy_(disps)
 
 
 def write_frame(video, index, values, fields):

@@ -1,6 +1,5 @@
 """The port's numpy evaluation pieces against the JAX package: the KITTI
-metrics, the relative pose error, and the EuRoC, TUM and ETH3D streams;
-and the port's timers.
+metrics, the relative pose error, and the EuRoC, TUM and ETH3D streams.
 
 The metrics are the same numpy code on the same inputs, so they agree
 exactly. The streams read the fixtures that ``data/fixtures.py`` writes in
@@ -112,30 +111,6 @@ def test_eth3d_stream_equals_jax(tmp_path, use_depth):
                   list(jstream.eth3d_stream(str(tmp_path), **kw)))
     np.testing.assert_array_equal(tstream.eth3d_timestamps(str(tmp_path)),
                                   jstream.eth3d_timestamps(str(tmp_path)))
-
-
-def test_timer_prints_the_block_ms(capsys):
-    from droid_slam_tpu_torch.utils.timer import Timer
-
-    x = torch.ones(8)
-    with Timer("block", sync=[x, torch.device("cpu"), "cpu"]):
-        x.sum()
-    out = capsys.readouterr().out
-    assert out.startswith("block: ") and out.endswith(" ms\n")
-    assert float(out.split()[1]) >= 0
-    with Timer("off", enabled=False):
-        pass
-    assert capsys.readouterr().out == ""
-
-
-def test_profile_trace_writes_a_trace(tmp_path):
-    from droid_slam_tpu_torch.utils.timer import profile_trace
-
-    with profile_trace(str(tmp_path)):
-        torch.ones(64).cumsum(0)
-    files = list(tmp_path.iterdir())
-    assert len(files) == 1 and files[0].name.endswith(".pt.trace.json")
-    assert "cumsum" in files[0].read_text()
 
 
 @pytest.mark.parametrize("mode", ["mono", "stereo_depth"])

@@ -53,7 +53,7 @@ def test_every_module_imports_without_jax():
               "data.augmentation", "data.base", "data.tartan",
               "data.factory", "data.synthetic", "data.fixtures",
               "data.stream", "geom.filters", "eval.kitti",
-              "eval.visualization", "eval.viewer", "utils.timer",
+              "eval.visualization", "eval.viewer", "utils.trace",
               "utils.device", "parallel", "parallel.mesh",
               "parallel.frontend", "parallel.backend"):
         assert "droid_slam_tpu_torch." + m in mods
