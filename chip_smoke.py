@@ -110,7 +110,8 @@ with the trained weights:
                 their averaged gradients to the mean of each rank's block
                 stepped alone; each rank's device and backend.
 The training phases launch none of the three kernels, as JAX's training
-forward runs none of its Pallas kernels; they print that. The machine has
+forward runs none of its Pallas kernels; they print that (nor the
+global BA's alt_corr). The machine has
 one card, so the multi-device phases show the sharded arithmetic and the
 NCCL path, not a speed on several cards.
 
@@ -120,7 +121,9 @@ means for the rectified 0.1 baseline, depth = fx * 0.1 / STEREO_SHIFT. Each
 mode's tracked median disparity must land within PLANE_DISP_TOL of the
 plane's. Both use the bench's thresholds (every frame admitted and kept)
 and its warm-up of 8. The lookup kernel is held against its twin at both
-feature-map sizes, 40x64 and 30x40.
+feature-map sizes, 40x64 and 30x40; the on-the-fly correlation kernel
+(alt_corr, the global BA's) against its twin and timed at one sweep chunk
+of the tum cell (ALT_E edges at 30x40).
 
 Before the paths, ``ba_global`` runs the BA alone at the JAX package's
 t=800 global-BA size (800 keyframes, 12802 edges, 30x40 plane, 2 GN
@@ -131,8 +134,8 @@ at the tum preset's buffer, 512 keyframes of tools/bench_global_ba_torch.py's
 synthetic video at 240x320, one pass of 2 steps: it holds GBA_PAIRS
 frame distances on the card to the CPU port, counts the proposal's
 distance chunks, checks the state's health, and prints the edges, the stage
-times, seconds per step and peak memory. Like the training phases it
-launches none of the three kernels, and prints that.
+times, seconds per step and peak memory. Its sweeps launch the on-the-fly
+correlation kernel (alt_corr) and no other, and it fails without it.
 
 Kernel times count device time only (``_time_ms``), with the wrappers' host
 microseconds per call beside them. Each path runs with the kernels' launch
@@ -281,10 +284,16 @@ SHOT_BACKGROUND = (22, 22, 25)  # render_offscreen's background, RGB
 GBA_STEPS = (2,)   # passes of 2 and 2 steps until the multi-device phases
 GBA_DIST_CALLS = 8
 GBA_PAIRS, GBA_DIST_RTOL, GBA_QUAT_TOL = 4096, 1e-4, 1e-5
-GBA_KERNEL_NOTE = ("0 launches by design: the global BA correlates on the "
-                   "fly (alt_lookup, XLA in JAX, not Pallas) and its sweep "
-                   "runs the update operator without the fused epilogues "
-                   "(droid_slam_tpu/state/graph.py:522-565)")
+GBA_KERNEL_NOTE = ("alt_corr only, by design: the global BA correlates on "
+                   "the fly (alt_lookup, XLA in JAX, not Pallas) and its "
+                   "sweep runs the update operator without the fused "
+                   "epilogues (droid_slam_tpu/state/graph.py:522-565)")
+# the tracking paths' kernels; alt_corr is the global BA's
+TRACK_KERNELS = ["corr_lookup", "gru_epilogue_a", "gru_epilogue_b"]
+# the alt_corr phase: one sweep chunk of tum_mono.global_ba, 127 edges of
+# 8 source frames into a pyramid of the tum buffer's 512 keyframes at
+# 30x40; the kernel's bound (docstring of tests/test_torch_alt_corr.py)
+ALT_E, ALT_FRAMES, ALT_PLANE = 127, 512, (30, 40)
 # the multi-device phases: the edge-parallel frontend and the chunk-parallel
 # global BA on a mesh of two shards that both sit on the one card, held as
 # JAX holds its own (tests/test_edge_parallel_mode.py: the largest se3 log
@@ -486,6 +495,68 @@ def check_lookup(dev, h, w, timed):
     del vol0
     torch.cuda.empty_cache()
     return row
+
+
+def check_alt_corr(dev):
+    """The on-the-fly correlation kernel against its plain twin at one
+    sweep chunk of the tum cell (ALT_E edges from 8 consecutive keyframes
+    to keyframes within 12 of them, in a pyramid of ALT_FRAMES keyframes at
+    ALT_PLANE; the warped coordinates within a few pixels of the source
+    pixel, some off the map), held to the f32 summation bound of
+    tests/test_torch_alt_corr.py. Returns the kernel's table row (without
+    launches), timed against its bound and the twin."""
+    import numpy as np
+    import torch
+    from droid_slam_tpu_torch.ops import alt_corr_cuda
+    from droid_slam_tpu_torch.ops import corr as corr_ops
+
+    h, w = ALT_PLANE
+    HW, E = h * w, ALT_E
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pyr = corr_ops.build_fmap_pyramid(torch.randn(
+        (ALT_FRAMES, 128, h, w), generator=gen, device=dev)
+        .to(torch.bfloat16))
+    ii = rng.integers(200, 208, E)
+    jj = ii + rng.choice([-12, -6, -3, -2, -1, 1, 2, 3, 6, 12], E)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    grid = np.stack([xs, ys], -1).reshape(1, HW, 2)
+    coords = torch.as_tensor(
+        (grid + rng.normal(scale=3.0, size=(E, HW, 2))).astype(np.float32),
+        device=dev)
+    ii_t = torch.as_tensor(ii, device=dev)
+    jj_t = torch.as_tensor(jj, device=dev)
+    kernel = lambda: alt_corr_cuda.alt_lookup(pyr, coords, ii_t, jj_t)
+    plain = lambda: corr_ops.alt_lookup(pyr, coords, ii_t, jj_t)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    norm = max(float(p.float().norm(dim=-1).max()) for p in pyr)
+    u = 2.0 ** -24
+    atol = (2 * 128 * u / (1 - 128 * u) * norm * norm / 16
+            + 8 * u * float(want.abs().max()))
+    if not err <= atol:
+        raise AssertionError(f"alt_corr kernel differs from its plain twin "
+                             f"by {err} > {atol}")
+    ms, host_us = _time_ms(kernel)
+    plain_ms, _ = _time_ms(plain, n=3)
+    # operations: 128 multiply-adds per grid point, 64 points a level;
+    # bytes, each read once: the source frames' level-0 rows, the target
+    # frames' maps at every level, coords, rows and the f32 output
+    ops = 2 * E * HW * len(pyr) * 64 * 128
+    per_frame = sum(p[0].numel() * p.element_size() for p in pyr)
+    nbytes = (len(np.unique(ii)) * pyr[0][0].numel() * 2
+              + len(np.unique(jj)) * per_frame + coords.numel() * 4
+              + 2 * E * 8 + got.numel() * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    del pyr, got, want
+    torch.cuda.empty_cache()
+    return dict(edges=E, plane=list(ALT_PLANE), max_abs_err=err, atol=atol,
+                ms=ms, host_us=host_us, plain_ms=plain_ms,
+                library_ms=None, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=ops)
 
 
 def check_gru(dev):
@@ -698,6 +769,7 @@ def run_global_ba_tum(dev):
          memory=rec["memory"], distance_card_vs_cpu=dict(
              pairs=GBA_PAIRS, max_rel=dist_rel, rtol=GBA_DIST_RTOL),
          launches=counts, launches_note=GBA_KERNEL_NOTE)
+    _require_launches(counts, ["alt_corr"], "global_ba_tum512")
     if not dist_rel <= GBA_DIST_RTOL:
         raise AssertionError(f"global_ba_tum512: distances on the card part "
                              f"from the CPU's by {dist_rel}")
@@ -716,15 +788,17 @@ def run_global_ba_tum(dev):
 
 
 def _reset_counts():
-    from droid_slam_tpu_torch.ops import corr_cuda, gru_cuda
+    from droid_slam_tpu_torch.ops import alt_corr_cuda, corr_cuda, gru_cuda
     corr_cuda.LAUNCHES = gru_cuda.LAUNCHES_A = gru_cuda.LAUNCHES_B = 0
+    alt_corr_cuda.LAUNCHES = 0
 
 
 def _counts():
-    from droid_slam_tpu_torch.ops import corr_cuda, gru_cuda
+    from droid_slam_tpu_torch.ops import alt_corr_cuda, corr_cuda, gru_cuda
     return {"corr_lookup": corr_cuda.LAUNCHES,
             "gru_epilogue_a": gru_cuda.LAUNCHES_A,
-            "gru_epilogue_b": gru_cuda.LAUNCHES_B}
+            "gru_epilogue_b": gru_cuda.LAUNCHES_B,
+            "alt_corr": alt_corr_cuda.LAUNCHES}
 
 
 def _require_launches(counts, names, phase):
@@ -1122,7 +1196,7 @@ def run_track_edge_parallel(dev, base, intr):
          peak_mem_gb=got["peak_mem_gb"],
          serial_peak_mem_gb=ref["peak_mem_gb"],
          rolled_noise_vs_serial=rolled_gaps)
-    _require_launches(counts, list(counts), "track_edge_parallel")
+    _require_launches(counts, TRACK_KERNELS, "track_edge_parallel")
     if not finite or not gaps["same_keyframes_and_edges"]:
         raise AssertionError(f"track_edge_parallel: finite={finite}, "
                              f"keyframes or edges differ from the serial "
@@ -1191,6 +1265,7 @@ def run_global_ba_mesh(droid):
          pose_max_gap=float(np.abs(a["poses"] - b["poses"]).max()),
          disp_max_gap=float(np.abs(a["disps"] - b["disps"]).max()),
          tol=GBA_MESH_TOL, launches=counts, launches_note=GBA_KERNEL_NOTE)
+    _require_launches(counts, ["alt_corr"], "global_ba_mesh")
     if not (a["edges"] == b["edges"] and n_edges > mesh.size):
         raise AssertionError(f"global_ba_mesh: {n_edges} edges, equal "
                              f"{a['edges'] == b['edges']}")
@@ -1318,8 +1393,8 @@ def run_mode(dev, mode, fused_frame=None):
          terminate_stats=st, traj_shape=list(traj.shape), finite=finite,
          launches=counts, **_path_of(droid),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    need = ["corr_lookup"] + (["gru_epilogue_a", "gru_epilogue_b"]
-                              if stereo else [])
+    need = ["corr_lookup", "alt_corr"] + (
+        ["gru_epilogue_a", "gru_epilogue_b"] if stereo else [])
     _require_launches(counts, need, phase)
     if not stereo and (counts["gru_epilogue_a"] or counts["gru_epilogue_b"]):
         raise AssertionError(f"the default configuration launched the GRU "
@@ -1614,8 +1689,11 @@ def run_async(dev, kind, ref_traj=None, fused_frame=ASYNC_FUSED_FRAME):
          backend_has_every_keyframe=same_keyframes, rel_ate=rel_ate,
          replay=replay, launches={"track": c_track, "terminate": c_term},
          peak_mem_gb=peak_gb, **_path_of(droid), **extra)
-    _require_launches(c_track, list(c_track), f"{phase} (tracking)")
-    _require_launches(c_term, list(c_term), f"{phase} (terminate)")
+    _require_launches(c_track, TRACK_KERNELS, f"{phase} (tracking)")
+    # the synchronous terminate() runs the global BA here; the facades'
+    # last cycles run it in their backends
+    _require_launches(c_term, TRACK_KERNELS + (
+        ["alt_corr"] if kind == "sync" else []), f"{phase} (terminate)")
     if not finite or traj.shape != ((N_ASYNC + 1) // 2, 7):
         raise AssertionError(f"{phase}: terminate returned {traj.shape}, "
                              f"finite={finite}")
@@ -2222,6 +2300,8 @@ def run_evaluate(dev):
     _require_launches(counts["track"], ["corr_lookup"], "evaluate (tracking)")
     _require_launches(counts.get("filler", {"corr_lookup": 0}),
                       ["corr_lookup"], "evaluate (filler)")
+    _require_launches(counts["terminate"], ["alt_corr"],
+                      "evaluate (terminate)")
     if total["gru_epilogue_a"] or total["gru_epilogue_b"]:
         raise AssertionError(f"the default configuration launched the GRU "
                              f"epilogue kernels: {total}")
@@ -2282,6 +2362,7 @@ def main():
         lookup_rgbd = check_lookup(dev, RGBD_SIZE[0] // 8, RGBD_SIZE[1] // 8,
                                    timed=False)
         gru = check_gru(dev)
+        alt = check_alt_corr(dev)
         run_ba_global(dev)
         c_gba = run_global_ba_tum(dev)
         droid, _, _, c_default, _ = run_track(dev, fused=False,
@@ -2346,7 +2427,10 @@ def main():
             "gru_epilogue_b": ("gru_epilogue.cu",
                                "droid_slam_tpu/ops/gru_pallas.py:93",
                                dict(atol_bf16=1e-2, atol_f32=1e-5,
-                                    **gru["gru_epilogue_b"]))}
+                                    **gru["gru_epilogue_b"])),
+            "alt_corr": ("alt_corr.cu",
+                         "none: JAX's global BA correlates on the fly in XLA "
+                         "(droid_slam_tpu/ops/corr.py:538)", alt)}
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep,
                     launches=sum(c[name] for c in paths.values()),
                     launches_by_path={p: c[name] for p, c in paths.items()},

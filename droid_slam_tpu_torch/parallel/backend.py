@@ -11,8 +11,9 @@ runs uneven, where JAX pads with empty chunks), and each shard holds its
 chunks' edge state (GRU state, target, weight) packed on its device. Per
 step:
 
-* each shard sweeps its chunks with on-the-fly (alt) correlation and the
-  plain GRU, as the serial sweep does, from copies of the poses,
+* each shard sweeps its chunks with on-the-fly (alt) correlation (the
+  kernel of ``ops/alt_corr_cuda.py`` on the GPU) and the plain GRU, as the
+  serial sweep does, from copies of the poses,
   disparities and feature pyramid on its device;
 * the damping is the sum over shards of each shard's update, with the mask
   of the frames present in its chunks (JAX's ``present``), on the owner
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from ..models import nets
-from ..ops import corr as corr_ops
+from ..ops import alt_corr_cuda
 from ..state.graph import corr_nchw, motion_features, target_weight
 from . import mesh as pmesh
 
@@ -93,7 +94,7 @@ def lowmem_step_mesh(mesh, shard_params, video, fpyrs, inps, shards,
             ii, jj = sh.ii[sl], sh.jj[sl]
             coords1, motn = motion_features(poses, disps, intr, ii, jj,
                                             st["target"][sl])
-            corr = corr_ops.alt_lookup(
+            corr = alt_corr_cuda.alt_lookup(
                 fpyrs[k], coords1.reshape(c.hi - c.lo, -1, 2),
                 sh.rows[0][sl], sh.rows[1][sl])
             net, delta, weight, eta, _ = nets.update_module(

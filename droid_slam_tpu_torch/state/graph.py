@@ -9,7 +9,8 @@ add and compacted on remove. One update iteration: reproject -> corr-window
 lookup (CUDA kernel on the GPU, ops/corr_cuda.py) -> update operator +
 graph aggregation (optionally with the fused GRU epilogues) -> windowed
 dense BA. ``update_lowmem`` is the global BA: on-the-fly (alt) correlation
-from feature pyramids, swept over chunks of 8 source frames.
+from feature pyramids (CUDA kernel on the GPU, ops/alt_corr_cuda.py), swept
+over chunks of 8 source frames.
 
 Stereo: a keyframe has two views, and an edge (i, i) joins frame i's left
 view to its right. An edge correlates the left view of ii with view
@@ -39,6 +40,7 @@ from ..geom import distance as gdist
 from ..geom import projective as pops
 from ..lie import se3
 from ..models import nets
+from ..ops import alt_corr_cuda
 from ..ops import corr as corr_ops
 from ..ops import corr_cuda
 from ..parallel import mesh as pmesh
@@ -542,9 +544,9 @@ class FactorGraph:
             ii_t, jj_t = self._dev(ii), self._dev(jj)
             coords1, motn = motion_features(v.poses, v.disps, v.intrinsics,
                                             ii_t, jj_t, self.target[sel])
-            corr = corr_ops.alt_lookup(fpyr,
-                                       coords1.reshape(len(idx), -1, 2),
-                                       rows[0][sel], rows[1][sel])
+            corr = alt_corr_cuda.alt_lookup(fpyr,
+                                            coords1.reshape(len(idx), -1, 2),
+                                            rows[0][sel], rows[1][sel])
             net, delta, weight, eta, upmask = nets.update_module(
                 self.params, self.net[sel], v.inps[ii_t],
                 corr_nchw(corr, self.h, self.w), motn, ii=ii_t - g0,

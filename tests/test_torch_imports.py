@@ -45,7 +45,8 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    for m in ("ops.corr_cuda", "ops.gru", "ops.gru_cuda", "slam.backend",
+    for m in ("ops.corr_cuda", "ops.alt_corr_cuda", "ops.gru", "ops.gru_cuda",
+              "slam.backend",
               "slam.trajectory_filler", "slam.align", "slam.async_droid",
               "slam.async_process", "eval.ate", "lie.sim3", "ba.dense",
               "models.droidnet", "train.losses", "train.trainer",
