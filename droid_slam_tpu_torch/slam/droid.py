@@ -146,8 +146,11 @@ class TrackPipeline:
         # deltas above the filter's threshold; frame programs that ran an
         # update and their live edges at dispatch; update iterations the
         # programs ran, and those whose writes were kept (``iters1``, and
-        # ``iters2`` when the keyframe stayed, once the readback says so)
+        # ``iters2`` when the keyframe stayed, once the readback says so);
+        # in stereo, the live (i, i) edges at dispatch and those the updates
+        # added (each builds a volume against the right view)
         self.admitted = self.updates = self.update_edges = 0
+        self.update_stereo_edges = self.new_stereo_edges = 0
         self.iters_run = self.iters_kept = 0
 
     @torch.no_grad()
@@ -259,6 +262,9 @@ class TrackPipeline:
         if run_upd:
             self.updates += 1
             self.update_edges += len(g.ii)
+            self.update_stereo_edges += int((g.ii == g.jj).sum())
+            self.new_stereo_edges += int(
+                ((ae_ii == ae_jj) & (ae_slots < g.capacity)).sum())
         # the lock across both programs: the asynchronous backend reads the
         # video under it (droid_slam_tpu/slam/droid.py:176-185)
         with v.get_lock():

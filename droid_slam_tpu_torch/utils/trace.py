@@ -18,6 +18,13 @@ The event is a function-scope record (``_RecordFunctionFast``), not a
 ``record_function`` user annotation: a user annotation also gets a copy
 on the device's timeline, which a reader of device operations would take
 for work on the device.
+
+Counters are plain ints on ``slam/droid.py::TrackPipeline``, counted from
+values the host already holds, traced or not: ``admitted``, ``updates``,
+``update_edges``, ``update_stereo_edges`` (the live (i, i) edges of each
+update, summed; 0 without stereo), ``new_stereo_edges`` (the (i, i) edges
+the updates added, each with a volume against the right view),
+``iters_run`` and ``iters_kept``.
 """
 
 from __future__ import annotations

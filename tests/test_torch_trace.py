@@ -170,6 +170,8 @@ def test_tracking_counters_match_the_logs_and_the_probe(tracked):
     assert droid.admitted == int((deltas > droid.filterx.thresh).sum())
     assert 0 < droid.admitted < len(deltas)   # both outcomes ran
     assert 0 < droid.iters_kept < droid.iters_run
+    # a monocular graph has no (i, i) edge
+    assert droid.update_stereo_edges == droid.new_stereo_edges == 0
     if probe is None:
         return
     upd = [c for c in probe.calls if c["update"]]
