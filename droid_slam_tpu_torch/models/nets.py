@@ -16,6 +16,7 @@ JAX package.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -83,18 +84,53 @@ def extract_features(params, images_bgr_u8, compute_dtype=torch.float32,
 # ConvGRU with global context gates
 # ---------------------------------------------------------------------------
 
+_GLO = ["update.gru.convz_glo", "update.gru.convr_glo",
+        "update.gru.convq_glo"]
+_ZR = ["update.gru.convz", "update.gru.convr"]
+_HEAD0 = ["update.delta.0", "update.weight.0"]
+
+
 def _merged(params, names):
     w = torch.cat([params[n + ".weight"] for n in names], dim=0)
     b = torch.cat([params[n + ".bias"] for n in names], dim=0)
     return w, b
 
 
-def _glo_gates(params, net):
-    """Global-context gate biases gz, gr, gq, each [E,128,1,1]."""
+def _head_block(params):
+    """The flow and weight heads' 2-channel second convs as one
+    block-diagonal 256->4 conv: (weight, bias)."""
+    d2 = params["update.delta.2.weight"]
+    w2 = params["update.weight.2.weight"]
+    blk = d2.new_zeros((4, 256) + tuple(d2.shape[2:]))
+    blk[:2, :128] = d2
+    blk[2:, 128:] = w2
+    return blk, torch.cat([params["update.delta.2.bias"],
+                           params["update.weight.2.bias"]])
+
+
+class Merged(NamedTuple):
+    """``update_module``'s merged weights (``merge_update``): each a
+    (weight, bias) pair."""
+    glo: tuple    # the three global-context gates
+    zr: tuple     # convz and convr
+    head0: tuple  # delta.0 and weight.0
+    head2: tuple  # delta.2 and weight.2, block-diagonal
+
+
+def merge_update(params):
+    """The merges ``update_module`` makes on every call, unless a caller
+    that runs it many times with the same weights (the global BA's sweep)
+    makes them once and passes them as its ``merged``."""
+    return Merged(_merged(params, _GLO), _merged(params, _ZR),
+                  _merged(params, _HEAD0), _head_block(params))
+
+
+def _glo_gates(params, net, gates):
+    """Global-context gate biases gz, gr, gq, each [E,128,1,1]; ``gates``:
+    their merged (weight, bias)."""
     glo = torch.sigmoid(conv2d(params, "update.gru.w", net)) * net
     glo = glo.float().mean(dim=(2, 3)).to(net.dtype)
-    w, b = _merged(params, ["update.gru.convz_glo", "update.gru.convr_glo",
-                            "update.gru.convq_glo"])
+    w, b = gates
     zrq = glo @ w.reshape(w.shape[0], w.shape[1]).t().to(glo.dtype) \
         + b.to(glo.dtype)
     return zrq[:, :, None, None].split(128, dim=1)
@@ -103,22 +139,23 @@ def _glo_gates(params, net):
 def gru_context_pre(params, inp):
     """Contributions of the context features to the zr and q convolutions:
     fixed across the iterations of one update call, so computed once."""
-    wzr, _ = _merged(params, ["update.gru.convz", "update.gru.convr"])
+    wzr, _ = _merged(params, _ZR)
     wq = params["update.gru.convq.weight"]
     return (conv_nobias(inp, wzr[:, 128:256]),
             conv_nobias(inp, wq[:, 128:256]))
 
 
-def conv_gru(params, net, inp, pre=None, fused_epilogue=False):
+def conv_gru(params, net, inp, merged, pre=None, fused_epilogue=False):
     """net [E,128,h,w]. Without ``pre``, inp is [context | corr | flow]
     features [E,320,h,w]; with ``pre`` (gru_context_pre of the context),
     inp is the [corr | flow] features [E,192,h,w]. Returns the new net.
 
     ``fused_epilogue`` (taken only with ``pre``): the gate sums and
     activations run in the two fused epilogue kernels between three
-    convolutions, as ``droid_slam_tpu/models/nets.py:195-210`` does."""
-    gz, gr, gq = _glo_gates(params, net)
-    wzr, bzr = _merged(params, ["update.gru.convz", "update.gru.convr"])
+    convolutions, as ``droid_slam_tpu/models/nets.py:195-210`` does.
+    ``merged``: ``merge_update(params)``."""
+    gz, gr, gq = _glo_gates(params, net, merged.glo)
+    wzr, bzr = merged.zr
     wq = params["update.gru.convq.weight"]
     bq = params["update.gru.convq.bias"]
 
@@ -164,9 +201,10 @@ def conv_gru(params, net, inp, pre=None, fused_epilogue=False):
 
 def update_module(params, net, inp, corr, flow=None, ii=None,
                   num_frames=None, pre=None, fused_epilogue=False,
-                  compute_upmask=False):
+                  compute_upmask=False, merged=None):
     """Update operator on a batch of edges (``fused_epilogue``: see
-    ``conv_gru``; it applies only with ``pre``).
+    ``conv_gru``; it applies only with ``pre``; ``merged``:
+    ``merge_update(params)``, made here when not given).
 
     net/inp [E,128,h,w], corr [E,196,h,w], flow [E,4,h,w] (zeros if None).
     Returns (net, delta [E,2,h,w], weight [E,2,h,w]), plus, when ``ii``
@@ -174,6 +212,8 @@ def update_module(params, net, inp, corr, flow=None, ii=None,
     damping eta [num_frames,h,w] and upsampling mask (``graph_agg``).
     """
     E, _, h, w = net.shape
+    if merged is None:
+        merged = merge_update(params)
     if flow is None:
         flow = torch.zeros((E, 4, h, w), dtype=net.dtype, device=net.device)
     c = F.relu(conv2d(params, "update.corr_encoder.0", corr))
@@ -182,22 +222,16 @@ def update_module(params, net, inp, corr, flow=None, ii=None,
     f = F.relu(conv2d(params, "update.flow_encoder.2", f))
 
     if pre is None:
-        net = conv_gru(params, net, torch.cat([inp, c, f], dim=1))
+        net = conv_gru(params, net, torch.cat([inp, c, f], dim=1), merged)
     else:
-        net = conv_gru(params, net, torch.cat([c, f], dim=1), pre=pre,
-                       fused_epilogue=fused_epilogue)
+        net = conv_gru(params, net, torch.cat([c, f], dim=1), merged,
+                       pre=pre, fused_epilogue=fused_epilogue)
 
     # delta.0 and weight.0 share their input: one 128->256 conv; their
     # 2-channel second convs become one block-diagonal 256->4 conv
-    wd0, bd0 = _merged(params, ["update.delta.0", "update.weight.0"])
+    wd0, bd0 = merged.head0
     ds = F.relu(conv_nobias(net, wd0) + bd0.to(net.dtype)[:, None, None])
-    d2 = params["update.delta.2.weight"]
-    w2 = params["update.weight.2.weight"]
-    blk = d2.new_zeros((4, 256) + tuple(d2.shape[2:]))
-    blk[:2, :128] = d2
-    blk[2:, 128:] = w2
-    bias4 = torch.cat([params["update.delta.2.bias"],
-                       params["update.weight.2.bias"]])
+    blk, bias4 = merged.head2
     head = gradient_clip(conv_nobias(ds, blk)
                          + bias4.to(net.dtype)[:, None, None])
     delta = head[:, :2]

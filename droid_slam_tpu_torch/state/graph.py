@@ -10,7 +10,8 @@ lookup (CUDA kernel on the GPU, ops/corr_cuda.py) -> update operator +
 graph aggregation (optionally with the fused GRU epilogues) -> windowed
 dense BA. ``update_lowmem`` is the global BA: on-the-fly (alt) correlation
 from feature pyramids (CUDA kernel on the GPU, ops/alt_corr_cuda.py), swept
-over chunks of 8 source frames.
+over chunks of whole source frames whose edges x pixels stay within
+``SWEEP_EDGE_PIXELS``, planned and uploaded once per call.
 
 Stereo: a keyframe has two views, and an edge (i, i) joins frame i's left
 view to its right. An edge correlates the left view of ii with view
@@ -31,6 +32,7 @@ BA) stays on the video's device. ``net``, ``target``, ``weight`` and
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -96,6 +98,55 @@ def _bucket(n, buckets):
     return b
 
 
+# ---------------------------------------------------------------------------
+# the global BA's sweep plan
+# ---------------------------------------------------------------------------
+
+# Cap on a sweep chunk's edges x feature pixels (h*w), which its working set
+# grows with whatever the resolution. Of 2^19, 2^20 and 2^21 on an H100 at
+# the tum preset (t=512, 240x320; 2^20 gives ~870 edges a chunk, 10 chunks
+# a step), 2^19 ran 8.6% slower a step than 2^21, and 2^21 peaked above
+# 16 GB where 2^20 peaked at 9.8 GB (PERF.md §6).
+SWEEP_EDGE_PIXELS = 1 << 20
+
+
+def sweep_bounds(ii, hw, cap):
+    """The sweep's chunks over the edges' source frames ``ii`` (host):
+    runs of consecutive whole source frames, each grown while its edges x
+    ``hw`` stay at or below ``cap``; a frame whose edges alone pass the cap
+    is a chunk of its own. Returns (order, bounds): the edges in order of
+    source frame (stable), and each chunk's [lo, hi) in that order."""
+    order = np.argsort(ii, kind="stable")
+    _, counts = np.unique(ii, return_counts=True)
+    bounds, lo, n = [], 0, 0
+    for k in counts.tolist():
+        if n and (n + k) * hw > cap:
+            bounds.append((lo, lo + n))
+            lo, n = lo + n, 0
+        n += k
+    if n:
+        bounds.append((lo, lo + n))
+    return order, bounds
+
+
+class SweepChunk(NamedTuple):
+    """One chunk of the sweep: its first source frame and its span of
+    source frames (graph_agg's window), and device views of the plan's one
+    upload: the edges' indices, source and target frames, source frames
+    less g0, and feature-pyramid rows (source, target); its source frames
+    and their offsets from g0."""
+    g0: int
+    span: int
+    sel: torch.Tensor
+    ii: torch.Tensor
+    jj: torch.Tensor
+    agg: torch.Tensor
+    src: torch.Tensor
+    dst: torch.Tensor
+    frames: torch.Tensor
+    offsets: torch.Tensor
+
+
 def _edge_field(name):
     return property(lambda self: self._get(name),
                     lambda self, x: self._set(name, x))
@@ -147,6 +198,9 @@ class FactorGraph:
         self.jj_inac = np.zeros(0, np.int64)
         self.target_inac = torch.zeros((0, 2, hw), device=dev)
         self.weight_inac = torch.zeros((0, 2, hw), device=dev)
+        # the global BA's sweep: chunks and steps run
+        self.sweep_chunks = 0
+        self.sweep_steps = 0
 
     def _dev(self, a):
         return torch.as_tensor(np.asarray(a, np.int64),
@@ -352,12 +406,13 @@ class FactorGraph:
                                            t1 - g0, compute_upmask=True)
             else:
                 upmask = self._mesh_upmask(tabs, t1 - g0)
-            self._write_disps_up(frames, upmask[self._dev(frames - g0)])
+            self._write_disps_up(self._dev(frames),
+                                 upmask[self._dev(frames - g0)])
 
-    def _write_disps_up(self, frames, upmask):
-        """Full-resolution disparities of ``frames`` from their masks."""
+    def _write_disps_up(self, f, upmask):
+        """Full-resolution disparities of the frames ``f`` (on the device)
+        from their masks."""
         v = self.video
-        f = self._dev(frames)
         v.disps_up[f] = nets.upsample_disp(v.disps[f], upmask)
 
     def _step(self, ii_t, jj_t, slots, agg_ii, nw, pre):
@@ -423,7 +478,7 @@ class FactorGraph:
 
     def update_lowmem(self, steps=8, itrs=2, use_inactive=False):
         """Global BA over all keyframes: ``steps`` x (a sweep of the update
-        operator over chunks of 8 source frames with on-the-fly correlation,
+        operator over chunks of source frames with on-the-fly correlation,
         then ``itrs`` dense BA iterations over every edge with free poses
         [1, t)); ``use_inactive`` adds every stored inactive edge to the BA,
         ahead of the active ones (the asynchronous backend's persistent
@@ -433,36 +488,71 @@ class FactorGraph:
         full 320-channel context path (no precompute, no fused epilogue).
         The feature pyramid flattens the views: row n*c + k is view k of
         frame n; with ``upsample`` each chunk writes ``disps_up`` of its
-        source frames from the disparities the step began with."""
+        source frames from the disparities the step began with.
+
+        The serial sweep's chunks (``sweep_bounds`` under
+        ``SWEEP_EDGE_PIXELS``), their tables and the update operator's
+        merged weights are made once, before the steps: inside the steps
+        nothing is copied to the device and nothing waits for it. Chunks
+        are independent within a step (each reads poses and disparities
+        that only the BA writes, and its own edges' state; graph_agg
+        averages over whole source frames), so their size changes no
+        result."""
         v = self.video
         t = v.counter
         c = v.fmaps.shape[1]
-        ii, jj = self.ii, self.jj
         fpyr = corr_ops.build_fmap_pyramid(v.fmaps[:t].reshape(
             t * c, *v.fmaps.shape[2:]))
-        rows = (self._dev(ii * c), self._dev(jj * c + (ii == jj)))
-        starts = range(int(ii.min()), int(jj.max()) + 1, 8)
-        chunks = [(s, np.flatnonzero((ii >= s) & (ii < s + 8)))
-                  for s in starts]
-        chunks = [(s, idx) for s, idx in chunks if len(idx)]
         n_inac = len(self.ii_inac) if use_inactive else 0
         if self.mesh is not None and not self.upsample:
             # chunk-parallel sweep (droid_slam_tpu/state/graph.py:1292-1336)
-            self._lowmem_steps_mesh(fpyr, rows, chunks, n_inac, steps, itrs)
+            self._lowmem_steps_mesh(fpyr, c, n_inac, steps, itrs)
             v.dirty[:t] = True
             return
         plan = ba_inference.build_plan(
-            np.concatenate([self.ii_inac[:n_inac], ii]),
-            np.concatenate([self.jj_inac[:n_inac], jj]), 1, t, v.device)
+            np.concatenate([self.ii_inac[:n_inac], self.ii]),
+            np.concatenate([self.jj_inac[:n_inac], self.jj]), 1, t, v.device)
+        chunks = self._sweep_plan(c)
+        # cast once: the convolutions then cast nothing, and the bits are
+        # those of a cast per call
+        params = {k: x.to(_BF16) for k, x in self.params.items()
+                  if k.startswith("update.")}
+        weights = (params, nets.merge_update(params))
         with self._whole():
             for _ in range(steps):
-                for s, idx in chunks:
-                    self._lowmem_chunk(fpyr, rows, s, idx)
+                for ch in chunks:
+                    self._lowmem_chunk(fpyr, weights, ch)
                 v.ba(torch.cat([self.target_inac[:n_inac], self.target]),
                      torch.cat([self.weight_inac[:n_inac], self.weight]),
                      plan, iters=itrs, lm=1e-5, ep=1e-2)
                 self.age += 1
+                self.sweep_steps += 1
         v.dirty[:t] = True
+
+    def _sweep_plan(self, c):
+        """The serial sweep's chunks (``SweepChunk``), their tables packed
+        into one int64 tensor and uploaded in one copy. ``c``: views per
+        frame."""
+        order, bounds = sweep_bounds(self.ii, self.h * self.w,
+                                     SWEEP_EDGE_PIXELS)
+        ii, jj = self.ii[order], self.jj[order]
+        g0 = np.zeros(len(ii), np.int64)
+        for lo, hi in bounds:
+            g0[lo:hi] = ii[lo]
+        frames, first = np.unique(ii, return_index=True)
+        cols = [order, ii, jj, ii - g0, ii * c, jj * c + (ii == jj)]
+        packed = self._dev(np.concatenate(cols + [frames, frames - g0[first]]))
+        E = len(ii)
+        sel, ii_t, jj_t, agg, src, dst = packed[:6 * E].split(E)
+        frames_t, offsets_t = packed[6 * E:].split(len(frames))
+        f_lo = np.searchsorted(frames, ii[[lo for lo, _ in bounds]])
+        f_hi = np.append(f_lo[1:], len(frames))
+        return [SweepChunk(g0=int(ii[lo]), span=int(ii[hi - 1] - ii[lo]) + 1,
+                           sel=sel[lo:hi], ii=ii_t[lo:hi], jj=jj_t[lo:hi],
+                           agg=agg[lo:hi], src=src[lo:hi], dst=dst[lo:hi],
+                           frames=frames_t[a:b], offsets=offsets_t[a:b])
+                for (lo, hi), a, b in zip(bounds, f_lo.tolist(),
+                                          f_hi.tolist())]
 
     @contextlib.contextmanager
     def _whole(self):
@@ -482,13 +572,20 @@ class FactorGraph:
             for k, x in list(self._edges.items()):
                 self._set(k, x)
 
-    def _lowmem_steps_mesh(self, fpyr, rows, chunks, n_inac, steps, itrs):
-        """Global-BA steps with the chunks split over the mesh
-        (``parallel/backend.py``): each shard's chunks' edge state packed
-        on its device for the run, the BA over the packed order, then the
-        state written back in edge order."""
+    def _lowmem_steps_mesh(self, fpyr, c, n_inac, steps, itrs):
+        """Global-BA steps with chunks of 8 source frames split over the
+        mesh (``parallel/backend.py``): each shard's chunks' edge state
+        packed on its device for the run, the BA over the packed order,
+        then the state written back in edge order. ``c``: views per
+        frame."""
         from ..parallel import backend as pback
         v, mesh = self.video, self.mesh
+        ii, jj = self.ii, self.jj
+        rows = (self._dev(ii * c), self._dev(jj * c + (ii == jj)))
+        starts = range(int(ii.min()), int(jj.max()) + 1, 8)
+        chunks = [(s, np.flatnonzero((ii >= s) & (ii < s + 8)))
+                  for s in starts]
+        chunks = [(s, idx) for s, idx in chunks if len(idx)]
         groups = pback.shard_chunks(mesh, chunks)
         shards, order = [], []
         whole = {k: self._get(k) for k in ("net", "target", "weight")}
@@ -524,42 +621,41 @@ class FactorGraph:
                 self.target_inac[:n_inac], self.weight_inac[:n_inac], plan,
                 itrs)
             self.age += 1
+            self.sweep_chunks += len(chunks)
+            self.sweep_steps += 1
         back = self._dev(order)
         for k, x in whole.items():
             x[back] = pmesh.gather([sh.state[k] for sh in shards], v.device)
             self._set(k, x)
 
-    def _lowmem_chunk(self, fpyr, rows, g0, idx):
-        """One update-operator pass over the edges ``idx``, whose source
-        frames lie in [g0, g0+8); writes their net, target and weight, and
-        the damping (and with ``upsample`` the full-resolution disparities)
-        of the source frames present. ``rows``: every edge's source and
-        target rows of the feature pyramid. The span ``droid:sweep_chunk``
-        (args: the first frame, the edges)."""
-        with trace.span("sweep_chunk",
-                        {"first": int(g0), "edges": len(idx)}):
+    def _lowmem_chunk(self, fpyr, weights, ch):
+        """One update-operator pass over the edges of the ``SweepChunk``
+        ``ch``; writes their net, target and weight, and the damping (and
+        with ``upsample`` the full-resolution disparities) of its source
+        frames. ``weights``: the update operator's (params, merged). Reads
+        only device tensors and host ints. The span ``droid:sweep_chunk``
+        (args: the first frame, the edges, the source frames)."""
+        n = len(ch.sel)
+        with trace.span("sweep_chunk", {"first": ch.g0, "edges": n,
+                                        "frames": len(ch.frames)}):
             v = self.video
-            sel = self._dev(idx)
-            ii, jj = self.ii[idx], self.jj[idx]
-            ii_t, jj_t = self._dev(ii), self._dev(jj)
             coords1, motn = motion_features(v.poses, v.disps, v.intrinsics,
-                                            ii_t, jj_t, self.target[sel])
-            corr = alt_corr_cuda.alt_lookup(fpyr,
-                                            coords1.reshape(len(idx), -1, 2),
-                                            rows[0][sel], rows[1][sel])
+                                            ch.ii, ch.jj, self.target[ch.sel])
+            corr = alt_corr_cuda.alt_lookup(fpyr, coords1.reshape(n, -1, 2),
+                                            ch.src, ch.dst)
+            params, merged = weights
             net, delta, weight, eta, upmask = nets.update_module(
-                self.params, self.net[sel], v.inps[ii_t],
-                corr_nchw(corr, self.h, self.w), motn, ii=ii_t - g0,
-                num_frames=8, compute_upmask=self.upsample)
-            self.net[sel] = net
-            self.target[sel], self.weight[sel] = target_weight(
+                params, self.net[ch.sel], v.inps[ch.ii],
+                corr_nchw(corr, self.h, self.w), motn, ii=ch.agg,
+                num_frames=ch.span, compute_upmask=self.upsample,
+                merged=merged)
+            self.net[ch.sel] = net
+            self.target[ch.sel], self.weight[ch.sel] = target_weight(
                 coords1, delta, weight)
-            frames = np.unique(ii)
-            v.damping[self._dev(frames)] = \
-                eta[self._dev(frames - g0)].float()
+            v.damping[ch.frames] = eta[ch.offsets].float()
             if self.upsample:
-                self._write_disps_up(frames,
-                                     upmask[self._dev(frames - g0)])
+                self._write_disps_up(ch.frames, upmask[ch.offsets])
+        self.sweep_chunks += 1
 
     # ------------------------------------------------------------------
     # edge proposers

@@ -24,7 +24,11 @@ values the host already holds, traced or not: ``admitted``, ``updates``,
 ``update_edges``, ``update_stereo_edges`` (the live (i, i) edges of each
 update, summed; 0 without stereo), ``new_stereo_edges`` (the (i, i) edges
 the updates added, each with a volume against the right view),
-``iters_run`` and ``iters_kept``.
+``iters_run`` and ``iters_kept``; and on ``state/graph.py::FactorGraph``,
+for the global BA: ``sweep_chunks`` (sweep chunks run) and ``sweep_steps``
+(global-BA steps run), whose ratio is the chunks of a step. The span
+``droid:sweep_chunk`` carries ``first`` (its first source frame),
+``edges`` and ``frames`` (its source frames).
 """
 
 from __future__ import annotations

@@ -184,9 +184,12 @@ def _step(params, video, mesh=None):
 def test_global_ba_sweeps_correlate_through_the_wrapper(n_devices,
                                                         monkeypatch):
     """The serial sweep and the chunk-parallel one call the wrapper once a
-    chunk (16 keyframes at 64x96: chunks of frames [0, 8) and [8, 16)), with
+    chunk (16 keyframes at 64x96; the mesh's chunks are frames [0, 8) and
+    [8, 16), the serial sweep's cap is lowered to ~40 edges a chunk), with
     the feature pyramid and the chunk's own edges."""
     from droid_slam_tpu_torch.parallel.mesh import Mesh
+    from droid_slam_tpu_torch.state import graph as graph_mod
+    monkeypatch.setattr(graph_mod, "SWEEP_EDGE_PIXELS", 40 * 96)
     calls = []
     plain = alt_corr_cuda.alt_lookup
 
@@ -198,7 +201,9 @@ def test_global_ba_sweeps_correlate_through_the_wrapper(n_devices,
     video = _tool().synthetic_video(16, (64, 96), "cpu")
     mesh = None if n_devices is None else Mesh(["cpu"] * n_devices)
     g = _step(_params("cpu"), video, mesh)
-    assert len(calls) == 2
+    assert len(calls) == g.sweep_chunks >= 2
+    if mesh is not None:
+        assert len(calls) == 2
     assert sum(c[2] for c in calls) == len(g.ii) > 20
     assert all(c[0] == 4 and c[1][1:] == (96, 2) and c[1][0] == c[2] == c[3]
                for c in calls)
@@ -294,20 +299,27 @@ def test_cuda_kernel_propagates_nan_and_zeroes_rows_outside():
 # scaled by 1 + 2^-22, a last-bit change: on the card (NVIDIA H100 80GB
 # HBM3) it moved the disparities by up to 0.0070 (mean 5.2e-5) and the
 # poses by 8.6e-6, the kernel by 0.0074 (2.4e-5) and 8.0e-6, two runs of
-# the twin by 2.4e-5 (4.8e-6) and 3.1e-6. The kernel's disparity gaps are
-# held to WITNESS_X times the witness's of the same run; its poses to JAX's
+# the twin by 2.4e-5 (4.8e-6) and 3.1e-6. The step's sweep runs in chunks
+# of at most SWEEP_EDGES edges (the cap lowered from its default, which
+# holds every edge at t=64 in one chunk), so that the kernel's launches
+# start past frame 0 and read offset views of the packed plan. The
+# kernel's disparity gaps are held to WITNESS_X times the witness's of
+# the same run; its poses to JAX's
 # bound for another summation order of the same step (the mesh sweep
 # against the serial one, tests/test_lowmem_spill.py:121-131)
 WITNESS_SCALE, WITNESS_X, POSE_ATOL = 1 + 2.0 ** -22, 3.0, 2e-4
+SWEEP_EDGES = 128
 
 
 @pytest.mark.cuda
 def test_cuda_update_lowmem_step_matches_the_twins(monkeypatch):
+    from droid_slam_tpu_torch.state import graph as graph_mod
     dev = _card()
     params = _params(dev)
     tool = _tool()
+    monkeypatch.setattr(graph_mod, "SWEEP_EDGE_PIXELS", SWEEP_EDGES * 1200)
     witness = lambda *a: tcorr.alt_lookup(*a) * WITNESS_SCALE
-    out, launches = {}, {}
+    out, launches, chunks = {}, {}, {}
     for name, fn in (("twin", tcorr.alt_lookup), ("kernel", None),
                      ("witness", witness)):
         with monkeypatch.context() as mp:
@@ -319,10 +331,17 @@ def test_cuda_update_lowmem_step_matches_the_twins(monkeypatch):
             g = _step(params, video)
             torch.cuda.synchronize()
             launches[name] = alt_corr_cuda.LAUNCHES - before
+            chunks[name] = (g.sweep_chunks,
+                            [(ch.g0, len(ch.sel)) for ch in g._sweep_plan(1)])
             out[name] = dict(edges=(g.ii.copy(), g.jj.copy()),
                              poses=video.poses[:64].cpu(),
                              disps=video.disps[:64].cpu(), start=start)
-    assert launches == {"twin": 0, "kernel": 8, "witness": 0}  # 8 chunks
+    # one launch a chunk of the plan, several chunks, each within the cap
+    ran, plan = chunks["kernel"]
+    assert launches == {"twin": 0, "kernel": len(plan), "witness": 0}
+    assert ran == len(plan) >= 4 and chunks["twin"] == chunks["kernel"]
+    assert plan[0][0] == 0 < plan[-1][0]
+    assert all(n <= SWEEP_EDGES for _, n in plan)
     a = out["twin"]
     assert all(np.array_equal(x, y) for x, y in zip(a["edges"],
                                                     out["kernel"]["edges"]))

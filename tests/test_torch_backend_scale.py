@@ -256,10 +256,15 @@ def test_backend_pass_without_normalization_matches_jax():
     assert dgap <= 0.02
 
 
-def test_tool_runs_end_to_end_on_the_cpu(capsys):
+def test_tool_runs_end_to_end_on_the_cpu(capsys, monkeypatch):
     """``--t 24 --height 64 --width 96 --steps 1 1 --device cpu``: one JSON
-    line with every key, a healthy state and edges in both passes."""
+    line with every key, a healthy state and edges in both passes. The
+    sweep's cap is lowered to ~64 edges a chunk, which at 64x96 would
+    otherwise hold every edge in one chunk, so that the chunk probe counts
+    several."""
     _need_checkpoint()
+    from droid_slam_tpu_torch.state import graph as graph_mod
+    monkeypatch.setattr(graph_mod, "SWEEP_EDGE_PIXELS", 64 * 8 * 12)
     result = _tool().main(["--t", "24", "--height", "64", "--width", "96",
                            "--steps", "1", "1", "--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()

@@ -125,8 +125,9 @@ def test_fused_conv_gru_matches_jax_pallas_path(monkeypatch, jax_params, dt):
     tp = tweights.from_jax_params(jax_params)
     tnet, tctx, tcf = (_nchw(a, dt) for a in (net, ctx, cfin))
     pre = tnets.gru_context_pre(tp, tctx)
-    got = tnets.conv_gru(tp, tnet, tcf, pre=pre, fused_epilogue=True)
-    plain = tnets.conv_gru(tp, tnet, tcf, pre=pre)
+    merged = tnets.merge_update(tp)
+    got = tnets.conv_gru(tp, tnet, tcf, merged, pre=pre, fused_epilogue=True)
+    plain = tnets.conv_gru(tp, tnet, tcf, merged, pre=pre)
     assert got.dtype == TORCH_DT[dt] and got.shape == (E, 128, h, w)
     want = np.asarray(want, np.float32)
     np.testing.assert_allclose(_np(got), want, atol=GRU_ATOL[dt], rtol=0)

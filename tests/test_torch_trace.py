@@ -207,17 +207,21 @@ def test_capture_reasons():
     assert fp._why(key(8, 1)) == "new_key"
 
 
-def test_global_ba_pass_spans_each_sweep_chunk():
+def test_global_ba_pass_spans_each_sweep_chunk(monkeypatch):
     """A ``DroidBackend`` pass at t=32: one ``droid:sweep_chunk`` per chunk
-    and step, whose edges add up to the pass's, and one ``droid:ba`` per
-    step, inside ``droid:gba_pass``."""
+    and step, whose edges add up to the pass's and whose source frames to
+    the video's, and one ``droid:ba`` per step, inside ``droid:gba_pass``.
+    The sweep's cap is lowered to ~100 edges a chunk, which at 64x96 would
+    otherwise hold every edge in one chunk."""
     from droid_slam_tpu_torch.config import DroidConfig
     from droid_slam_tpu_torch.models import weights
     from droid_slam_tpu_torch.slam.backend import DroidBackend
+    from droid_slam_tpu_torch.state import graph as graph_mod
     from droid_slam_tpu_torch.state.video import DepthVideo
 
     t, steps, size = 32, 2, (64, 96)
     h, w = size[0] // 8, size[1] // 8
+    monkeypatch.setattr(graph_mod, "SWEEP_EDGE_PIXELS", 100 * h * w)
     g = torch.Generator().manual_seed(5)
     v = DepthVideo(size, t + 8, "cpu")
     ang = torch.linspace(0, 0.6, t)
@@ -243,6 +247,8 @@ def test_global_ba_pass_spans_each_sweep_chunk():
     assert edges > 0 and len(firsts) > 1
     assert len(chunks) == steps * len(firsts)
     assert sum(e[4]["edges"] for e in chunks) == steps * edges
+    assert sum(e[4]["frames"] for e in chunks) == steps * t
+    assert max(e[4]["frames"] for e in chunks) > 1
     assert names["droid:gba_pass"] == names["droid:proposal"] == 1
     assert names["droid:distance"] == 1 and names["droid:ba"] == steps
     gba = next(e for e in ev if e[0] == "droid:gba_pass")

@@ -151,8 +151,8 @@ class _Probe:
         self.step_times.append(now - self._step_start)
         self._step_start = now
 
-    def chunk(self, now, graph, fpyr, rows, g0, idx):
-        self.chunk_sizes.append(len(idx))
+    def chunk(self, now, graph, fpyr, weights, ch):
+        self.chunk_sizes.append(len(ch.sel))
 
 
 def run(t, image_size, steps, device, video=None):
