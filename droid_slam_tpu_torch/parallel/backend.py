@@ -33,9 +33,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..models import nets
 from ..ops import alt_corr_cuda
-from ..state.graph import corr_nchw, motion_features, target_weight
+from ..state.edge_update import edge_update
 from . import mesh as pmesh
 
 
@@ -70,39 +69,34 @@ class ChunkShard:
     state: dict
 
 
-def lowmem_step_mesh(mesh, shard_params, video, fpyrs, inps, shards,
+def lowmem_step_mesh(mesh, shard_weights, video, fpyrs, inps, shards,
                      target_inac, weight_inac, plan, itrs):
     """One global-BA step with the chunks sharded over ``mesh``: each
     shard's sweep, the damping of every window present, and the dense BA
     on the video's device over ``target_inac`` / ``weight_inac`` and the
-    shards' packed edges (``plan`` in that order). shard_params, fpyrs,
-    inps: the parameters, the feature pyramid and the context features on
-    each shard's device."""
+    shards' packed edges (``plan`` in that order). shard_weights, fpyrs,
+    inps: the update operator's (params, merged) weights, the feature
+    pyramid and the context features on each shard's device."""
     v, owner = video, video.device
-    h, w = v.disps.shape[-2:]
     upds, masks = [], []
     for k, (d, sh) in enumerate(zip(mesh.devices, shards)):
         if not sh.spans:
             continue
-        p, st = shard_params[k], sh.state
+        (p, merged), st = shard_weights[k], sh.state
         poses, disps = v.poses.to(d), v.disps.to(d)
         intr = v.intrinsics.to(d)
         upd = torch.zeros_like(v.damping, device=d)
         mask = torch.zeros(v.damping.shape[0], device=d)
         for c in sh.spans:
             sl = slice(c.lo, c.hi)
-            ii, jj = sh.ii[sl], sh.jj[sl]
-            coords1, motn = motion_features(poses, disps, intr, ii, jj,
-                                            st["target"][sl])
-            corr = alt_corr_cuda.alt_lookup(
-                fpyrs[k], coords1.reshape(c.hi - c.lo, -1, 2),
-                sh.rows[0][sl], sh.rows[1][sl])
-            net, delta, weight, eta, _ = nets.update_module(
-                p, st["net"][sl], inps[k][ii], corr_nchw(corr, h, w),
-                motn, ii=ii - c.g0, num_frames=8)
+            ii, src, dst = sh.ii[sl], sh.rows[0][sl], sh.rows[1][sl]
+            net, tgt, wgt, eta, _ = edge_update(
+                p, poses, disps, intr, ii, sh.jj[sl], st["net"][sl],
+                st["target"][sl],
+                lambda x: alt_corr_cuda.alt_lookup(fpyrs[k], x, src, dst),
+                inp=inps[k][ii], agg=ii - c.g0, num_frames=8, merged=merged)
             st["net"][sl] = net
-            st["target"][sl], st["weight"][sl] = target_weight(
-                coords1, delta, weight)
+            st["target"][sl], st["weight"][sl] = tgt, wgt
             upd[c.frames] = eta[c.offsets].float()
             mask[c.frames] = 1.0
         upds.append(upd)

@@ -32,7 +32,7 @@ import torch
 
 from ..models import nets
 from ..ops import corr_cuda
-from ..state.graph import corr_nchw, motion_features, target_weight
+from ..state.edge_update import edge_update
 from . import mesh as pmesh
 
 
@@ -81,7 +81,6 @@ def edge_parallel_update(mesh, params, poses, disps, intrinsics, inps,
     owner, eta [nw,h,w] and the upsampling mask (None unless
     ``compute_upmask``): the serial pass's results in blocks."""
     owner = poses.device
-    h, w = disps.shape[-2:]
     if shard_params is None:
         shard_params = pmesh.replicate_to(mesh, params)
     out = ([], [], [])
@@ -92,20 +91,17 @@ def edge_parallel_update(mesh, params, poses, disps, intrinsics, inps,
             for o, x in zip(out, (nets_e[k], target[k], target[k])):
                 o.append(x)
             continue
-        coords1, motn = motion_features(
-            poses.to(d), disps.to(d), intrinsics.to(d), tabs.ii[k],
-            tabs.jj[k], target[k])
         slots = torch.arange(E, dtype=torch.int32, device=d)
-        corr = corr_cuda.lookup_pyramid_slots(
-            pyramid[k], slots, coords1.reshape(E, h * w, 2).contiguous())
         pre = None if tabs.pre is None else tabs.pre[k]
-        inp = inps.to(d)[tabs.ii[k]] if pre is None else None
-        net, delta, weight = nets.update_module(
-            shard_params[k], nets_e[k], inp, corr_nchw(corr, h, w), motn,
-            pre=pre, fused_epilogue=fused_epilogue)
+        net, tgt, wgt, _, _ = edge_update(
+            shard_params[k], poses.to(d), disps.to(d), intrinsics.to(d),
+            tabs.ii[k], tabs.jj[k], nets_e[k], target[k],
+            lambda x: corr_cuda.lookup_pyramid_slots(pyramid[k], slots,
+                                                     x.contiguous()),
+            inp=inps.to(d)[tabs.ii[k]] if pre is None else None, pre=pre,
+            fused_epilogue=fused_epilogue)
         c, s = nets.graph_agg_sums(shard_params[k], net, tabs.agg_ii[k],
                                    nw)
-        tgt, wgt = target_weight(coords1, delta, weight)
         for o, x in zip(out, (net, tgt, wgt)):
             o.append(x)
         counts.append(c)
@@ -115,24 +111,3 @@ def edge_parallel_update(mesh, params, poses, disps, intrinsics, inps,
         compute_upmask)
     return out + (eta, upmask)
 
-
-def edge_parallel_iteration(mesh, params, video, pyramid, nets_e, target,
-                            tabs: EdgeTables, g0: int, nw: int, frames,
-                            target_inac, weight_inac, plan, itrs=2, lm=1e-4,
-                            ep=0.1, motion_only=False, shard_params=None,
-                            fused_epilogue=False):
-    """One frontend iteration at the edge-parallel layout: the sharded
-    update, the damping of the source frames ``frames`` (a tensor on the
-    video's device), and the dense BA on the video's device over the
-    inactive edges and the shards' targets and weights in edge order.
-    Returns the shards' new (nets, targets, weights)."""
-    nets_e, tgts, wgts, eta, _ = edge_parallel_update(
-        mesh, params, video.poses, video.disps, video.intrinsics, video.inps,
-        pyramid, nets_e, target, tabs, nw, shard_params=shard_params,
-        fused_epilogue=fused_epilogue)
-    video.damping[frames] = eta[frames - g0].float()
-    dev = video.device
-    video.ba(torch.cat([target_inac, pmesh.gather(tgts, dev)]),
-             torch.cat([weight_inac, pmesh.gather(wgts, dev)]), plan,
-             iters=itrs, lm=lm, ep=ep, motion_only=motion_only)
-    return nets_e, tgts, wgts

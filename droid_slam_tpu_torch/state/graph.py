@@ -5,13 +5,12 @@ trajectory filler and the resident global BA. Edge bookkeeping (ii, jj, age,
 inactive edges, NMS proposals) is host numpy; per-edge device state (GRU
 hidden state, target, weight and, with volume correlation, the 4-level
 correlation-volume pyramid) lives in tensors in edge order, concatenated on
-add and compacted on remove. One update iteration: reproject -> corr-window
-lookup (CUDA kernel on the GPU, ops/corr_cuda.py) -> update operator +
-graph aggregation (optionally with the fused GRU epilogues) -> windowed
-dense BA. ``update_lowmem`` is the global BA: on-the-fly (alt) correlation
-from feature pyramids (CUDA kernel on the GPU, ops/alt_corr_cuda.py), swept
-over chunks of whole source frames whose edges x pixels stay within
-``SWEEP_EDGE_PIXELS``, planned and uploaded once per call.
+add and compacted on remove. One update iteration: the edge pass
+(``edge_update.py``) with the volume lookup (ops/corr_cuda.py) -> windowed
+dense BA. ``update_lowmem`` is the global BA: the edge pass with on-the-fly
+(alt) correlation (ops/alt_corr_cuda.py), swept over chunks of whole source
+frames whose edges x pixels stay within ``SWEEP_EDGE_PIXELS``, planned and
+uploaded once per call.
 
 Stereo: a keyframe has two views, and an edge (i, i) joins frame i's left
 view to its right. An edge correlates the left view of ii with view
@@ -39,7 +38,6 @@ import torch
 
 from ..ba import inference as ba_inference
 from ..geom import distance as gdist
-from ..geom import projective as pops
 from ..lie import se3
 from ..models import nets
 from ..ops import alt_corr_cuda
@@ -47,34 +45,9 @@ from ..ops import corr as corr_ops
 from ..ops import corr_cuda
 from ..parallel import mesh as pmesh
 from ..utils import trace
+from .edge_update import edge_update, new_edge_state
 
 _BF16 = torch.bfloat16
-
-
-def motion_features(poses, disps, intrinsics, ii_t, jj_t, target):
-    """coords1 [E,h,w,2] of the edges (ii, jj) at the given poses and
-    disparities, and the update operator's motion features [E,4,h,w]
-    bf16: flow from the identity grid and residual to the target."""
-    E, (h, w) = len(ii_t), disps.shape[-2:]
-    coords1, _, _ = pops.projective_transform(poses, disps, intrinsics, ii_t,
-                                              jj_t)
-    coords0 = pops.coords_grid(h, w, device=coords1.device)
-    resd = target.reshape(E, 2, h, w).permute(0, 2, 3, 1) - coords1
-    motn = torch.cat([coords1 - coords0, resd], dim=-1).clamp(-64.0, 64.0)
-    return coords1, motn.to(_BF16).permute(0, 3, 1, 2)
-
-
-def corr_nchw(corr, h, w):
-    """Lookup output [E,HW,196] f32 -> the corr encoder's [E,196,h,w]
-    bf16."""
-    return corr.to(_BF16).transpose(1, 2).reshape(corr.shape[0], -1, h, w)
-
-
-def target_weight(coords1, delta, weight):
-    """The update's new target and weight [E,2,HW] f32."""
-    E, h, w = coords1.shape[:3]
-    return ((coords1.permute(0, 3, 1, 2) + delta.float()).reshape(E, 2, h * w),
-            weight.float().reshape(E, 2, h * w))
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +100,16 @@ def sweep_bounds(ii, hw, cap):
     if n:
         bounds.append((lo, lo + n))
     return order, bounds
+
+
+def _sweep_weights(params):
+    """The sweep's update weights, made once per ``update_lowmem`` call:
+    (the ``update.`` parameters cast to bf16, ``nets.merge_update`` of
+    them). Cast once, the convolutions cast nothing, and the bits are
+    those of a cast per call."""
+    params = {k: x.to(_BF16) for k, x in params.items()
+              if k.startswith("update.")}
+    return params, nets.merge_update(params)
 
 
 class SweepChunk(NamedTuple):
@@ -286,24 +269,17 @@ class FactorGraph:
             return
 
         v = self.video
-        ii_t, jj_t = self._dev(ii), self._dev(jj)
-        coords, _, _ = pops.projective_transform(v.poses, v.disps,
-                                                 v.intrinsics, ii_t, jj_t)
-        k, hw = len(ii), self.h * self.w
-        target0 = coords.reshape(k, hw, 2).transpose(1, 2)
-        if self.levels:
-            view2 = self._dev((ii == jj) & v.stereo)
-            vols = corr_ops.build_pyramid(v.fmaps[ii_t, 0],
-                                          v.fmaps[jj_t, view2])
-            for l, q in enumerate(vols):
-                self._append(f"pyr{l}", q.to(_BF16))
-
-        self._append("net", v.nets[ii_t])
+        view2 = self._dev((ii == jj) & v.stereo) if self.levels else None
+        net, target0, weight0, vols = new_edge_state(
+            v, self._dev(ii), self._dev(jj), view2, bool(self.levels))
+        for l, q in enumerate(vols):
+            self._append(f"pyr{l}", q)
+        self._append("net", net)
         self._append("target", target0)
-        self._append("weight", torch.zeros_like(target0))
+        self._append("weight", weight0)
         self.ii = np.concatenate([self.ii, ii])
         self.jj = np.concatenate([self.jj, jj])
-        self.age = np.concatenate([self.age, np.zeros(k, np.int64)])
+        self.age = np.concatenate([self.age, np.zeros(len(ii), np.int64)])
 
     def rm_factors(self, mask, store: bool = False):
         """Remove the edges where ``mask``; with ``store`` their targets and
@@ -382,21 +358,25 @@ class FactorGraph:
         frames = np.unique(ii)
         if self.mesh is not None:
             tabs = self._shard_tables(ii_t, jj_t, g0)
-            for _ in range(n_iters):
-                self._mesh_iteration(tabs, g0, t1 - g0, self._dev(frames),
-                                     tgt_inac, wgt_inac, plan, itrs,
-                                     motion_only)
         else:
-            slots = torch.arange(len(ii), dtype=torch.int32,
-                                 device=self.video.device)
-            pre = nets.gru_context_pre(self.params, self.video.inps[ii_t])
-            for _ in range(n_iters):
-                eta = self._step(ii_t, jj_t, slots, ii_t - g0, t1 - g0, pre)
-                v.damping[self._dev(frames)] = \
-                    eta[self._dev(frames - g0)].float()
-                v.ba(torch.cat([tgt_inac, self.target]),
-                     torch.cat([wgt_inac, self.weight]), plan, iters=itrs,
-                     lm=1e-4, ep=0.1, motion_only=motion_only)
+            pyr, slots = self.pyramid, torch.arange(
+                len(ii), dtype=torch.int32, device=v.device)
+            pre = nets.gru_context_pre(self.params, v.inps[ii_t])
+        for _ in range(n_iters):
+            if self.mesh is not None:
+                eta = self._mesh_update(tabs, t1 - g0)
+            else:
+                self.net, self.target, self.weight, eta, _ = edge_update(
+                    self.params, v.poses, v.disps, v.intrinsics, ii_t, jj_t,
+                    self.net, self.target,
+                    lambda c: corr_cuda.lookup_pyramid_slots(
+                        pyr, slots, c.contiguous()),
+                    pre=pre, agg=ii_t - g0, num_frames=t1 - g0,
+                    fused_epilogue=self.fused_epilogue)
+            v.damping[self._dev(frames)] = eta[self._dev(frames - g0)].float()
+            v.ba(torch.cat([tgt_inac, self.target]),
+                 torch.cat([wgt_inac, self.weight]), plan, iters=itrs,
+                 lm=1e-4, ep=0.1, motion_only=motion_only)
         self.age += n_iters
         if self.upsample:
             # the mask of the last iteration, from its GRU state
@@ -415,22 +395,6 @@ class FactorGraph:
         v = self.video
         v.disps_up[f] = nets.upsample_disp(v.disps[f], upmask)
 
-    def _step(self, ii_t, jj_t, slots, agg_ii, nw, pre):
-        """One update-operator pass over the active edges; updates net,
-        target and weight, returns the per-frame damping [nw,h,w]."""
-        v = self.video
-        coords1, motn = motion_features(v.poses, v.disps, v.intrinsics, ii_t,
-                                        jj_t, self.target)
-        E, h, w = len(slots), self.h, self.w
-        corr = corr_cuda.lookup_pyramid_slots(
-            self.pyramid, slots, coords1.reshape(E, h * w, 2).contiguous())
-        self.net, delta, weight, eta, _ = nets.update_module(
-            self.params, self.net, None, corr_nchw(corr, h, w), motn,
-            ii=agg_ii, num_frames=nw, pre=pre,
-            fused_epilogue=self.fused_epilogue)
-        self.target, self.weight = target_weight(coords1, delta, weight)
-        return eta
-
     def _shard_tables(self, ii_t, jj_t, g0):
         """Each shard's block of the edge tables on its device: source and
         target frames, their offsets from g0, and the context features'
@@ -446,19 +410,20 @@ class FactorGraph:
         return pfront.EdgeTables(ii=split(ii_t), jj=split(jj_t),
                                  agg_ii=split(ii_t - g0), pre=pre)
 
-    def _mesh_iteration(self, tabs, g0, nw, frames, tgt_inac, wgt_inac,
-                        plan, itrs, motion_only):
-        """One iteration of ``update`` with the edges sharded over the
-        mesh (``parallel/frontend.py::edge_parallel_iteration``)."""
+    def _mesh_update(self, tabs, nw):
+        """One update-operator pass with the edges sharded over the mesh
+        (``parallel/frontend.py::edge_parallel_update``): writes the
+        blocks, returns eta [nw,h,w] on the video's device."""
         from ..parallel import frontend as pfront
+        v = self.video
         pyr = [self._blocks(f"pyr{l}") for l in range(self.levels)]
-        nets_e, tgts, wgts = pfront.edge_parallel_iteration(
-            self.mesh, self.params, self.video, list(zip(*pyr)),
-            self._blocks("net"), self._blocks("target"), tabs, g0, nw,
-            frames, tgt_inac, wgt_inac, plan, itrs=itrs,
-            motion_only=motion_only, shard_params=self.shard_params,
+        nets_e, tgts, wgts, eta, _ = pfront.edge_parallel_update(
+            self.mesh, self.params, v.poses, v.disps, v.intrinsics, v.inps,
+            list(zip(*pyr)), self._blocks("net"), self._blocks("target"),
+            tabs, nw, shard_params=self.shard_params,
             fused_epilogue=self.fused_epilogue)
         self._edges.update(net=nets_e, target=tgts, weight=wgts)
+        return eta
 
     def _mesh_upmask(self, tabs, nw):
         """graph_agg's upsampling mask of the sharded GRU state."""
@@ -513,11 +478,7 @@ class FactorGraph:
             np.concatenate([self.ii_inac[:n_inac], self.ii]),
             np.concatenate([self.jj_inac[:n_inac], self.jj]), 1, t, v.device)
         chunks = self._sweep_plan(c)
-        # cast once: the convolutions then cast nothing, and the bits are
-        # those of a cast per call
-        params = {k: x.to(_BF16) for k, x in self.params.items()
-                  if k.startswith("update.")}
-        weights = (params, nets.merge_update(params))
+        weights = _sweep_weights(self.params)
         with self._whole():
             for _ in range(steps):
                 for ch in chunks:
@@ -615,9 +576,10 @@ class FactorGraph:
             v.counter, v.device)
         fpyrs = [[lvl.to(d) for lvl in fpyr] for d in mesh.devices]
         inps = [v.inps.to(d) for d in mesh.devices]
+        weights = [_sweep_weights(p) for p in self.shard_params]
         for _ in range(steps):
             pback.lowmem_step_mesh(
-                mesh, self.shard_params, v, fpyrs, inps, shards,
+                mesh, weights, v, fpyrs, inps, shards,
                 self.target_inac[:n_inac], self.weight_inac[:n_inac], plan,
                 itrs)
             self.age += 1
@@ -635,23 +597,18 @@ class FactorGraph:
         frames. ``weights``: the update operator's (params, merged). Reads
         only device tensors and host ints. The span ``droid:sweep_chunk``
         (args: the first frame, the edges, the source frames)."""
-        n = len(ch.sel)
-        with trace.span("sweep_chunk", {"first": ch.g0, "edges": n,
+        with trace.span("sweep_chunk", {"first": ch.g0, "edges": len(ch.sel),
                                         "frames": len(ch.frames)}):
             v = self.video
-            coords1, motn = motion_features(v.poses, v.disps, v.intrinsics,
-                                            ch.ii, ch.jj, self.target[ch.sel])
-            corr = alt_corr_cuda.alt_lookup(fpyr, coords1.reshape(n, -1, 2),
-                                            ch.src, ch.dst)
             params, merged = weights
-            net, delta, weight, eta, upmask = nets.update_module(
-                params, self.net[ch.sel], v.inps[ch.ii],
-                corr_nchw(corr, self.h, self.w), motn, ii=ch.agg,
-                num_frames=ch.span, compute_upmask=self.upsample,
-                merged=merged)
+            net, tgt, wgt, eta, upmask = edge_update(
+                params, v.poses, v.disps, v.intrinsics, ch.ii, ch.jj,
+                self.net[ch.sel], self.target[ch.sel],
+                lambda c: alt_corr_cuda.alt_lookup(fpyr, c, ch.src, ch.dst),
+                inp=v.inps[ch.ii], agg=ch.agg, num_frames=ch.span,
+                merged=merged, compute_upmask=self.upsample)
             self.net[ch.sel] = net
-            self.target[ch.sel], self.weight[ch.sel] = target_weight(
-                coords1, delta, weight)
+            self.target[ch.sel], self.weight[ch.sel] = tgt, wgt
             v.damping[ch.frames] = eta[ch.offsets].float()
             if self.upsample:
                 self._write_disps_up(ch.frames, upmask[ch.offsets])
@@ -1034,21 +991,16 @@ class FrameTables:
 
 
 def add_edges(g, ii, jj, c, slots):
-    """New edges into their slots (a slot past the capacity drops the
-    write): target = the current reprojection, weight 0, net from the
-    video, and the correlation pyramid."""
-    v, kb, hw = g.video, ii.shape[0], g.h * g.w
-    coords, _, _ = pops.projective_transform(v.poses, v.disps, v.intrinsics,
-                                             ii, jj)
-    target0 = coords.reshape(kb, hw, 2).transpose(1, 2)
-    g.net_e.index_copy_(0, slots, v.nets[ii])
+    """New edges' first state (``new_edge_state``; ``c``: 1 for an (i, i)
+    edge) into their slots (a slot past the capacity drops the write)."""
+    v = g.video
+    net, target0, weight0, vols = new_edge_state(
+        v, ii, jj, c * int(v.stereo), g.pyr_e is not None)
+    g.net_e.index_copy_(0, slots, net)
     g.target_e.index_copy_(0, slots, target0)
-    g.weight_e.index_copy_(0, slots, torch.zeros_like(target0))
-    if g.pyr_e is not None:
-        view2 = c * int(v.stereo)
-        vols = corr_ops.build_pyramid(v.fmaps[ii, 0], v.fmaps[jj, view2])
-        for p, q in zip(g.pyr_e, vols):
-            p.index_copy_(0, slots, q.to(p.dtype))
+    g.weight_e.index_copy_(0, slots, weight0)
+    for p, q in zip(g.pyr_e or (), vols):
+        p.index_copy_(0, slots, q)
 
 
 def move_rows(g, src, dst):
@@ -1109,18 +1061,14 @@ class FrameIteration:
 
     def __call__(self, run):
         g, v, tabs, cap = self.g, self.g.video, self.tabs, self.cap
-        h, w = g.h, g.w
         tgt_e, wgt_e, net_e = (g.target_e[:cap], g.weight_e[:cap],
                                g.net_e[:cap])
-        coords1, motn = motion_features(v.poses, v.disps, v.intrinsics,
-                                        tabs.ii, tabs.jj, tgt_e)
-        corr = corr_cuda.lookup_pyramid_slots(
-            g.pyr_e, self.slots, coords1.reshape(cap, h * w, 2).contiguous())
-        net, delta, weight, eta, _ = nets.update_module(
-            g.params, net_e, None, corr_nchw(corr, h, w), motn,
-            ii=self.agg_ii, num_frames=self.nw + 1, pre=self.pre,
+        net, tgt, wgt, eta, _ = edge_update(
+            g.params, v.poses, v.disps, v.intrinsics, tabs.ii, tabs.jj, net_e,
+            tgt_e, lambda c: corr_cuda.lookup_pyramid_slots(
+                g.pyr_e, self.slots, c.contiguous()),
+            pre=self.pre, agg=self.agg_ii, num_frames=self.nw + 1,
             fused_epilogue=g.fused_epilogue)
-        tgt, wgt = target_weight(coords1, delta, weight)
         net_e.copy_(torch.where(run, net, net_e))
         tgt_e.copy_(torch.where(run, tgt * self.vm, tgt_e))
         wgt_e.copy_(torch.where(run, wgt * self.vm, wgt_e))

@@ -3,8 +3,12 @@ demo_torch.py, train_torch.py, view_reconstruction_torch.py, the
 evaluation scripts ``evaluation_scripts/*_torch.py``,
 tools/bench_global_ba_torch.py or tools/frame_path_probe_torch.py) pulls in
 neither JAX nor the JAX package,
-and its entry points default to the GPU."""
+and its entry points default to the GPU. The update operator's edge pass
+(``state/edge_update.py``) sits below ``state/graph.py`` and
+``parallel/``."""
 
+import ast
+import glob
 import inspect
 import os
 import pkgutil
@@ -76,6 +80,46 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
+
+
+def _imported(path, package):
+    """Every module that the file at ``path`` (a module of ``package``)
+    imports, at its top or inside a function, as absolute names; ``from m
+    import x`` gives both m and m.x."""
+    names = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parts = package.split(".")[:len(package.split(".")) + 1
+                                            - node.level]
+                base = ".".join(parts + ([base] if base else []))
+            names += [base] + [f"{base}.{a.name}" for a in node.names]
+    return names
+
+
+def test_parallel_and_the_edge_pass_import_nothing_above_them():
+    """``parallel/`` imports nothing from ``state/graph.py``, and
+    ``state/edge_update.py`` nothing from ``state/graph.py`` or
+    ``parallel/``: the edge pass has one home below both."""
+    pkg = os.path.join(ROOT, "droid_slam_tpu_torch")
+    graph = "droid_slam_tpu_torch.state.graph"
+    files = {p: ("droid_slam_tpu_torch.parallel", (graph,))
+             for p in glob.glob(os.path.join(pkg, "parallel", "*.py"))}
+    assert len(files) >= 4
+    files[os.path.join(pkg, "state", "edge_update.py")] = (
+        "droid_slam_tpu_torch.state",
+        (graph, "droid_slam_tpu_torch.parallel"))
+    seen = {}
+    for path, (package, banned) in files.items():
+        seen[os.path.basename(path)] = names = _imported(path, package)
+        bad = [n for n in names for b in banned
+               if n == b or n.startswith(b + ".")]
+        assert not bad, (path, bad)
+    for name in ("frontend.py", "backend.py"):
+        assert "droid_slam_tpu_torch.state.edge_update" in seen[name]
 
 
 def test_train_torch_defaults_to_cuda_and_refuses_without_it():

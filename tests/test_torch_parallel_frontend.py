@@ -4,8 +4,9 @@ CPU devices, against the port's serial update and against the JAX package.
 
 * One sharded update-operator pass on ``Mesh(["cpu"] * n)`` (n = 2 and 4;
   10 edges, so n = 4 gives the uneven blocks 3, 3, 2, 2) against the port's
-  serial ``FactorGraph._step`` on the same inputs, with the default and the
-  fused GRU epilogues (their plain twins on the CPU). Per-edge arithmetic is
+  one-device pass (``state/edge_update.py::edge_update`` with the slot
+  lookup, as ``FactorGraph.update`` runs it) on the same inputs, with the
+  default and the fused GRU epilogues (their plain twins on the CPU). Per-edge arithmetic is
   the same, but a convolution over a block of edges may round differently
   from one over all of them, and GraphAgg's bf16 sums are reassociated: the
   tolerances are those of JAX's own sharded-against-serial test
@@ -140,27 +141,23 @@ def _assert_close(got, want, scale=1.0):
 @pytest.mark.parametrize("n,fused", [(2, False), (4, False), (2, True),
                                      (4, True)])
 def test_edge_parallel_update_matches_the_serial_step(params, n, fused):
-    """The sharded pass against FactorGraph._step (slot table, context
-    precompute, the default or fused GRU) on a graph holding the same
-    edges."""
+    """The sharded pass against the one-device edge_update (slot table,
+    context precompute, the default or fused GRU) on the same edges."""
     from droid_slam_tpu_torch.models import nets as tnets
-    from droid_slam_tpu_torch.state.graph import FactorGraph
-    from droid_slam_tpu_torch.state.video import DepthVideo
+    from droid_slam_tpu_torch.ops import corr_cuda
+    from droid_slam_tpu_torch.state.edge_update import edge_update
 
     st = _port_state(_scenario(E=10))
-    video = DepthVideo((8 * H8, 8 * W8), NWF + 1, "cpu")
-    video.poses, video.disps = st["poses"].clone(), st["disps"].clone()
-    video.intrinsics, video.inps = st["intr"].clone(), st["inps"].clone()
-    g = FactorGraph(video, params, fused_epilogue=fused)
-    g.net, g.target = st["net"].clone(), st["target"].clone()
-    for lvl, p in enumerate(st["pyr"]):
-        g._set(f"pyr{lvl}", p.clone())
-    E = len(st["ii"])
+    slots = torch.arange(len(st["ii"]), dtype=torch.int32)
     pre = tnets.gru_context_pre(params, st["inps"][st["ii"]])
-    eta = g._step(st["ii"], st["jj"], torch.arange(E, dtype=torch.int32),
-                  st["ii"], NWF, pre)
-    want = dict(net=g.net.float().numpy(), target=g.target.numpy(),
-                weight=g.weight.numpy(), eta=eta.float().numpy())
+    net, tgt, wgt, eta, _ = edge_update(
+        params, st["poses"], st["disps"], st["intr"], st["ii"], st["jj"],
+        st["net"], st["target"],
+        lambda c: corr_cuda.lookup_pyramid_slots(st["pyr"], slots,
+                                                 c.contiguous()),
+        pre=pre, agg=st["ii"], num_frames=NWF, fused_epilogue=fused)
+    want = dict(net=net.float().numpy(), target=tgt.numpy(),
+                weight=wgt.numpy(), eta=eta.float().numpy())
 
     got = _sharded(params, st, Mesh(["cpu"] * n), pre=True, fused=fused,
                    compute_upmask=False)

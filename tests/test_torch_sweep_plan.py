@@ -25,6 +25,7 @@ from droid_slam_tpu_torch.ba import inference as ba_inference
 from droid_slam_tpu_torch.models import nets
 from droid_slam_tpu_torch.ops import alt_corr_cuda
 from droid_slam_tpu_torch.ops import corr as corr_ops
+from droid_slam_tpu_torch.state import edge_update
 from droid_slam_tpu_torch.state import graph as graph_mod
 from droid_slam_tpu_torch.state.graph import FactorGraph
 
@@ -101,17 +102,17 @@ def _eight_frame_step(g, use_inactive):
             continue
         sel = g._dev(idx)
         ii_t, jj_t = g._dev(ii[idx]), g._dev(jj[idx])
-        coords1, motn = graph_mod.motion_features(
+        coords1, motn = edge_update.motion_features(
             v.poses, v.disps, v.intrinsics, ii_t, jj_t, g.target[sel])
         corr = alt_corr_cuda.alt_lookup(
             fpyr, coords1.reshape(len(idx), -1, 2), rows[0][sel],
             rows[1][sel])
         net, delta, weight, eta, upmask = nets.update_module(
             g.params, g.net[sel], v.inps[ii_t],
-            graph_mod.corr_nchw(corr, g.h, g.w), motn, ii=ii_t - s,
+            edge_update.corr_nchw(corr, g.h, g.w), motn, ii=ii_t - s,
             num_frames=8, compute_upmask=g.upsample)
         g.net[sel] = net
-        g.target[sel], g.weight[sel] = graph_mod.target_weight(
+        g.target[sel], g.weight[sel] = edge_update.target_weight(
             coords1, delta, weight)
         frames = np.unique(ii[idx])
         v.damping[g._dev(frames)] = eta[g._dev(frames - s)].float()
