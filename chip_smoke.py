@@ -127,19 +127,23 @@ and its warm-up of 8. The lookup kernel is held against its twin at both
 feature-map sizes, 40x64 and 30x40; the on-the-fly correlation kernel
 (alt_corr, the global BA's) against its twin and timed at the largest
 sweep chunk of the tum cell (as many edges as the sweep's cap allows at
-30x40).
+30x40); the frame-distance kernel (frame_distance, the global BA
+proposal's) against its twin and timed over every pair of the tum cell's
+512 keyframes at 30x40.
 
 Before the paths, ``ba_global`` runs the BA alone at the JAX package's
 t=800 global-BA size (800 keyframes, 12802 edges, 30x40 plane, 2 GN
 iterations) and prints its seconds per iteration and peak memory; then
 ``global_ba_tum512`` runs the whole global BA (``DroidBackend``: the
-proposal over all t^2 pairs in chunks, the alt-correlation sweeps, the BA)
-at the tum preset's buffer, 512 keyframes of tools/bench_global_ba_torch.py's
+proposal over all t^2 pairs, the alt-correlation sweeps, the BA) at the
+tum preset's buffer, 512 keyframes of tools/bench_global_ba_torch.py's
 synthetic video at 240x320, one pass of 2 steps: it holds GBA_PAIRS
 frame distances on the card to the CPU port, counts the proposal's
-distance chunks, checks the state's health, and prints the edges, the stage
-times, seconds per step and peak memory. Its sweeps launch the on-the-fly
-correlation kernel (alt_corr) and no other, and it fails without it.
+distance calls (one frame_distance launch a pass), checks the state's
+health, and prints the edges, the stage times, seconds per step and peak
+memory. Its proposals launch the frame-distance kernel and its sweeps the
+on-the-fly correlation kernel (alt_corr), no other, and it fails without
+either.
 
 Kernel times count device time only (``_time_ms``), with the wrappers' host
 microseconds per call beside them. Each path runs with the kernels' launch
@@ -279,20 +283,29 @@ SHOT_FLOOR = 0.02
 SHOT_BACKGROUND = (22, 22, 25)  # render_offscreen's background, RGB
 # the global_ba_tum512 phase: tools/bench_global_ba_torch.py's synthetic
 # video filling the tum preset's buffer (512 keyframes at 240x320) and
-# one DroidBackend pass of 2 steps; its proposal over all 512^2 pairs
-# crosses GBA_DIST_CALLS chunks of DepthVideo._DIST_CHUNK pairs. The frame
-# distance of GBA_PAIRS random pairs of distinct frames on the card against
-# the CPU port: f32 sums of 1200 pixels in another order, to GBA_DIST_RTOL;
+# one DroidBackend pass of 2 steps; its proposal over all 512^2 pairs is
+# GBA_DIST_CALLS frame_distance launch. The frame distance of GBA_PAIRS
+# random pairs of distinct frames on the card against the CPU port: f32
+# sums of 1200 pixels in another order, to GBA_DIST_RTOL;
 # the quaternions stay unit to GBA_QUAT_TOL (f32 rounding: 3.6e-7 at t=500,
 # NVIDIA H100 80GB HBM3, 700 W)
 GBA_STEPS = (2,)   # passes of 2 and 2 steps until the multi-device phases
-GBA_DIST_CALLS = 8
+GBA_DIST_CALLS = 1
 GBA_PAIRS, GBA_DIST_RTOL, GBA_QUAT_TOL = 4096, 1e-4, 1e-5
-GBA_KERNEL_NOTE = ("alt_corr only, by design: the global BA correlates on "
-                   "the fly (alt_lookup, XLA in JAX, not Pallas) and its "
-                   "sweep runs the update operator without the fused "
-                   "epilogues (droid_slam_tpu/state/graph.py:522-565)")
-# the tracking paths' kernels; alt_corr is the global BA's
+# the global BA's kernels: the proposal's frame distance and the sweep's
+# on-the-fly correlation
+GBA_KERNELS = ["alt_corr", "frame_distance"]
+GBA_KERNEL_NOTE = ("alt_corr and frame_distance only, by design: the "
+                   "global BA correlates on the fly (alt_lookup, XLA in JAX, "
+                   "not Pallas), its proposal's distance is one kernel over "
+                   "every pair (XLA in JAX), and its sweep runs the update "
+                   "operator without the fused epilogues "
+                   "(droid_slam_tpu/state/graph.py:522-565)")
+# the tracking paths' kernels; alt_corr and frame_distance are the global
+# BA's (the frame programs compute their distances with the plain twin;
+# a tracking path launches frame_distance only from DepthVideo.distance:
+# the strict path's proposals, a frame-path proposal whose probe missed,
+# and the global BA of terminate())
 TRACK_KERNELS = ["corr_lookup", "gru_epilogue_a", "gru_epilogue_b"]
 # the alt_corr phase: the largest sweep chunk of tum_mono.global_ba, as
 # many edges as state/graph.py::SWEEP_EDGE_PIXELS allows at 30x40 (873;
@@ -301,6 +314,17 @@ TRACK_KERNELS = ["corr_lookup", "gru_epilogue_a", "gru_epilogue_b"]
 # keyframes in 10 chunks), into a pyramid of the tum buffer's ALT_FRAMES
 # keyframes; the kernel's bound (docstring of tests/test_torch_alt_corr.py)
 ALT_SPAN, ALT_FRAMES, ALT_PLANE = 52, 512, (30, 40)
+# the frame_distance phase: the proposal of tum_mono.global_ba, every pair
+# of the tum buffer's 512 keyframes (the tool's synthetic walk) at 30x40,
+# held to the plain twin run in DepthVideo._DIST_CHUNK chunks, as
+# tests/test_torch_frame_distance.py holds it (FD_ATOL px, FD_RTOL_PIXEL,
+# 2 gamma_n of the sums; at most FD_SHARE_NEAR_CUT of the pairs beyond,
+# those with a pixel at the depth cut); the kernel's operations per pixel
+# and direction, a division or square root counted as one
+# (csrc/frame_distance.cu)
+FD_T, FD_PLANE = 512, (30, 40)
+FD_ATOL, FD_RTOL_PIXEL, FD_SHARE_NEAR_CUT = 1e-4, 1e-5, 1e-3
+FD_OPS_PER_PIXEL_DIRECTION = 72
 # the multi-device phases: the edge-parallel frontend and the chunk-parallel
 # global BA on a mesh of two shards that both sit on the one card, held as
 # JAX holds its own (tests/test_edge_parallel_mode.py: the largest se3 log
@@ -745,12 +769,71 @@ def run_ba_global(dev):
     torch.cuda.empty_cache()
 
 
+def check_frame_distance(dev):
+    """The frame-distance kernel against its plain twin at the proposal of
+    the tum cell: every pair of FD_T keyframes of the global-BA tool's
+    synthetic walk at FD_PLANE, the twin in DepthVideo._DIST_CHUNK chunks
+    (the port's path before the kernel). Returns the kernel's table row
+    (without launches), timed against its bound and the twin."""
+    import torch
+    from droid_slam_tpu_torch.geom import distance as gdist
+    from droid_slam_tpu_torch.ops import frame_distance_cuda
+    from droid_slam_tpu_torch.state.video import DepthVideo
+
+    h, w = FD_PLANE
+    t, HW = FD_T, h * w
+    tool = _script("tools", "bench_global_ba_torch.py")
+    video = tool["synthetic_video"](t, (8 * h, 8 * w), dev)
+    poses, disps = video.poses[:t].contiguous(), video.disps[:t].contiguous()
+    intr = video.intrinsics[0]
+    del video
+    ii, jj = torch.meshgrid(torch.arange(t, device=dev),
+                            torch.arange(t, device=dev), indexing="ij")
+    ii, jj = ii.reshape(-1), jj.reshape(-1)
+    E, chunk = len(ii), DepthVideo._DIST_CHUNK
+    kernel = lambda: frame_distance_cuda.frame_distance(poses, disps, intr,
+                                                        ii, jj, 0.3)
+    plain = lambda: torch.cat([
+        gdist.frame_distance(poses, disps, intr, ii[s:s + chunk],
+                             jj[s:s + chunk], 0.3)
+        for s in range(0, E, chunk)])
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    u = 2.0 ** -24
+    tol = ((2 * HW * u / (1 - HW * u) + FD_RTOL_PIXEL) * want.abs()
+           + FD_ATOL)
+    gap = (got - want).abs()
+    beyond = int((~(gap <= tol)).sum())
+    err = float(gap[gap <= tol].max())
+    if not beyond <= FD_SHARE_NEAR_CUT * E:
+        raise AssertionError(f"frame_distance kernel parts from its plain "
+                             f"twin beyond the bound on {beyond} of {E} "
+                             f"pairs")
+    ms, host_us = _time_ms(kernel)
+    plain_ms, _ = _time_ms(plain, n=3)
+    ops = FD_OPS_PER_PIXEL_DIRECTION * E * HW * 2
+    # bytes, each read once: the frames' disparities and poses, the
+    # intrinsics, the pairs' rows and the f32 output
+    nbytes = (disps.numel() * 4 + poses.numel() * 4 + 16
+              + E * (ii.element_size() + jj.element_size()) + E * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    del got, want, gap, tol
+    torch.cuda.empty_cache()
+    return dict(pairs=E, keyframes=t, plane=list(FD_PLANE),
+                max_abs_err=err, beyond_bound=beyond,
+                ms=ms, host_us=host_us, plain_ms=plain_ms,
+                library_ms=None, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=ops)
+
+
 def run_global_ba_tum(dev):
     """The global BA at the tum preset's buffer: tools/bench_global_ba_torch.py
     on its synthetic video of 512 keyframes at 240x320 with the preset's
     backend settings, passes of GBA_STEPS steps (the first normalizes).
     Checked: GBA_PAIRS distances on the card against the CPU port, the
-    proposal's GBA_DIST_CALLS distance chunks in each pass, edges beyond the
+    proposal's GBA_DIST_CALLS distance calls in each pass, edges beyond the
     neighbours, and a healthy state (finite poses, finite positive
     disparities, unit quaternions)."""
     import numpy as np
@@ -788,13 +871,15 @@ def run_global_ba_tum(dev):
          memory=rec["memory"], distance_card_vs_cpu=dict(
              pairs=GBA_PAIRS, max_rel=dist_rel, rtol=GBA_DIST_RTOL),
          launches=counts, launches_note=GBA_KERNEL_NOTE)
-    _require_launches(counts, ["alt_corr"], "global_ba_tum512")
+    _require_launches(counts, GBA_KERNELS, "global_ba_tum512")
     if not dist_rel <= GBA_DIST_RTOL:
         raise AssertionError(f"global_ba_tum512: distances on the card part "
                              f"from the CPU's by {dist_rel}")
     chunks = [p["dist_chunks"] for p in passes]
-    if chunks != [GBA_DIST_CALLS] * len(GBA_STEPS):
-        raise AssertionError(f"global_ba_tum512: distance chunks {chunks}, "
+    if (chunks != [GBA_DIST_CALLS] * len(GBA_STEPS)
+            or counts["frame_distance"] != sum(chunks)):
+        raise AssertionError(f"global_ba_tum512: distance calls {chunks} "
+                             f"and launches {counts['frame_distance']}, "
                              f"not {GBA_DIST_CALLS} per pass")
     if not min(p["edges"] for p in passes) > 6 * t:
         raise AssertionError(f"global_ba_tum512: edges {rec['graph']}")
@@ -807,17 +892,20 @@ def run_global_ba_tum(dev):
 
 
 def _reset_counts():
-    from droid_slam_tpu_torch.ops import alt_corr_cuda, corr_cuda, gru_cuda
+    from droid_slam_tpu_torch.ops import (alt_corr_cuda, corr_cuda,
+                                          frame_distance_cuda, gru_cuda)
     corr_cuda.LAUNCHES = gru_cuda.LAUNCHES_A = gru_cuda.LAUNCHES_B = 0
-    alt_corr_cuda.LAUNCHES = 0
+    alt_corr_cuda.LAUNCHES = frame_distance_cuda.LAUNCHES = 0
 
 
 def _counts():
-    from droid_slam_tpu_torch.ops import alt_corr_cuda, corr_cuda, gru_cuda
+    from droid_slam_tpu_torch.ops import (alt_corr_cuda, corr_cuda,
+                                          frame_distance_cuda, gru_cuda)
     return {"corr_lookup": corr_cuda.LAUNCHES,
             "gru_epilogue_a": gru_cuda.LAUNCHES_A,
             "gru_epilogue_b": gru_cuda.LAUNCHES_B,
-            "alt_corr": alt_corr_cuda.LAUNCHES}
+            "alt_corr": alt_corr_cuda.LAUNCHES,
+            "frame_distance": frame_distance_cuda.LAUNCHES}
 
 
 def _require_launches(counts, names, phase):
@@ -1318,7 +1406,7 @@ def run_global_ba_mesh(droid):
          gaps_to_one_shard=gap, tol=GBA_MESH_TOL,
          witness_x=GBA_WITNESS_X, launches=counts,
          launches_note=GBA_KERNEL_NOTE)
-    _require_launches(counts, ["alt_corr"], "global_ba_mesh")
+    _require_launches(counts, GBA_KERNELS, "global_ba_mesh")
     if not (same_edges and n_edges > mesh.size):
         raise AssertionError(f"global_ba_mesh: {n_edges} edges, equal "
                              f"{same_edges}")
@@ -2419,6 +2507,7 @@ def main():
                                    timed=False)
         gru = check_gru(dev)
         alt = check_alt_corr(dev)
+        fdist = check_frame_distance(dev)
         run_ba_global(dev)
         c_gba = run_global_ba_tum(dev)
         droid, _, _, c_default, _ = run_track(dev, fused=False,
@@ -2486,7 +2575,12 @@ def main():
                                     **gru["gru_epilogue_b"])),
             "alt_corr": ("alt_corr.cu",
                          "none: JAX's global BA correlates on the fly in XLA "
-                         "(droid_slam_tpu/ops/corr.py:538)", alt)}
+                         "(droid_slam_tpu/ops/corr.py:538)", alt),
+            "frame_distance": ("frame_distance.cu",
+                               "none: JAX's frame distance is XLA "
+                               "(droid_slam_tpu/geom/distance.py, "
+                               "droid_slam_tpu/state/video.py:225-250)",
+                               fdist)}
     kernels = [dict(name=name, route="cuda", source=src + f, replaces=rep,
                     launches=sum(c[name] for c in paths.values()),
                     launches_by_path={p: c[name] for p, c in paths.items()},

@@ -97,6 +97,10 @@ def lib() -> ctypes.CDLL:
         fn.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp,
                        ci, vp, vp]
         fn.restype = ci
+        fn = handle.droid_frame_distance
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, ci, ci,
+                       ctypes.c_float, ctypes.c_float, ci, vp, vp]
+        fn.restype = ci
         for name in ("droid_gru_epilogue_a", "droid_gru_epilogue_b"):
             fn = getattr(handle, name)
             fn.argtypes = [ci, ci, ci, ci] + [vp] * 8

@@ -23,8 +23,8 @@ import threading
 import numpy as np
 import torch
 
-from ..geom import distance as gdist
 from ..geom import projective as pops
+from ..ops import frame_distance_cuda
 from ..lie import se3
 from ..ba import inference as ba_inf
 from ..utils import trace
@@ -182,26 +182,29 @@ class DepthVideo:
             self.poses, self.disps, self.intrinsics, ii, jj)
         return coords, valid
 
-    # most pairs per frame_distance call: each pair holds ~70 bytes per
-    # pixel of warped points and temporaries, so the backend's proposal over
-    # all t^2 pairs (1M at t=1000) runs in chunks, as in
-    # droid_slam_tpu/state/video.py:225-244
+    # most pairs per call of the plain twin on the CPU: each pair holds ~70
+    # bytes per pixel of warped points and temporaries, so the backend's
+    # proposal over all t^2 pairs (1M at t=1000) runs in chunks, as in
+    # droid_slam_tpu/state/video.py:225-244. The CUDA kernel holds none and
+    # takes every pair in one launch
     _DIST_CHUNK = 32768
 
     def distance(self, ii, jj, beta=0.3, bidirectional=True):
-        """Frame distance of each pair (ii[k], jj[k]) -> [len(ii)] tensor,
-        computed ``_DIST_CHUNK`` pairs at a time; the span
+        """Frame distance of each pair (ii[k], jj[k]) -> [len(ii)] tensor:
+        on a card one ``ops/frame_distance_cuda.py`` launch, on the CPU
+        its twin ``_DIST_CHUNK`` pairs at a time; the span
         ``droid:distance``."""
         with trace.span("distance"):
             ii = torch.as_tensor(np.atleast_1d(ii), device=self.device)
             jj = torch.as_tensor(np.atleast_1d(jj), device=self.device)
+            n = max(len(ii), 1)
+            step = self._DIST_CHUNK if self.device.type == "cpu" else n
             return torch.cat([
-                gdist.frame_distance(self.poses, self.disps,
-                                     self.intrinsics[0],
-                                     ii[s:s + self._DIST_CHUNK],
-                                     jj[s:s + self._DIST_CHUNK], beta,
-                                     bidirectional=bidirectional)
-                for s in range(0, max(len(ii), 1), self._DIST_CHUNK)])
+                frame_distance_cuda.frame_distance(
+                    self.poses, self.disps, self.intrinsics[0],
+                    ii[s:s + step], jj[s:s + step], beta,
+                    bidirectional=bidirectional)
+                for s in range(0, n, step)])
 
     def ba(self, target, weight, plan, iters=2, lm=1e-4, ep=0.1,
            motion_only=False):

@@ -162,8 +162,8 @@ def run(t, image_size, steps, device, video=None):
     docstring)."""
     import torch
     from droid_slam_tpu_torch.config import DroidConfig
-    from droid_slam_tpu_torch.geom import distance as gdist
     from droid_slam_tpu_torch.models import weights as tweights
+    from droid_slam_tpu_torch.ops import frame_distance_cuda
     from droid_slam_tpu_torch.slam.backend import DroidBackend
     from droid_slam_tpu_torch.state.graph import FactorGraph
     from droid_slam_tpu_torch.state.video import DepthVideo
@@ -190,7 +190,8 @@ def run(t, image_size, steps, device, video=None):
     # step's BA returned, and ends where its BA returns
     patches = [
         (DepthVideo, "distance", "distance", None, None),
-        (gdist, "frame_distance", "frame_distance", None, None),
+        (frame_distance_cuda, "frame_distance", "frame_distance", None,
+         None),
         (FactorGraph, "add_factors", "add_factors", None, None),
         (FactorGraph, "add_proximity_factors", "proposal", None, None),
         (FactorGraph, "update_lowmem", "update_lowmem", probe.step_start,
